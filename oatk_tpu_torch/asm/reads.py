@@ -1,0 +1,434 @@
+"""Read database and the fused native-parse -> device extraction loader
+(PyTorch port of ``oatk_tpu/asm/reads.py``).
+
+``ReadDB`` and the host helpers (segment parse + pack, sparse N
+positions, row bucketing) are carried unchanged.  :func:`load_and_extract`
+is the port of the JAX loader's uncapped pipelined flow with
+device-resident counting: worker threads parse+pack segment i+1 while
+the main thread uploads segment i's blobs, runs the extraction
+(:func:`oatk_tpu_torch.kernels.syncmer.extract_hoco_fused`) and appends
+the keys to the device count buffers.
+
+Not ported yet (they raise instead of falling back): the ``-D`` capped
+sequential flow, the host-count flow (``extract_all_syncmers``) and the
+device-hoco knob (``OATK_TPU_DEVICE_HOCO``).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..kernels.oracle import ReadSyncmers
+
+
+@dataclass
+class ReadDB:
+    """All reads with hoco sequences and per-read syncmer lists."""
+
+    k: int  # k-mer size (hoco bases); reference's 'w'
+    s: int  # s-mer size
+    reads: list[ReadSyncmers] = field(default_factory=list)
+    stats: dict = field(default_factory=dict)
+    version: int = 0  # bumped whenever read arrays mutate (EC)
+    # whole-run hoco streams in sid order (set by the native loader;
+    # per-read hoco_code/ho_rl are views into these).  Consumers
+    # (consensus _Flats) reuse them instead of re-concatenating ~100 MB
+    # of per-read arrays.  Immutable: EC splices only syncmer arrays.
+    hoco_flat: np.ndarray | None = None  # uint8 codes
+    rl_flat: np.ndarray | None = None  # uint8 run length - 1, saturated 255
+    hoco_off: np.ndarray | None = None  # int64 [n+1] read offsets
+    # exact run-length-1 values for saturated rl_flat entries, sorted by
+    # global stream position (the reference's ho_l_rl overflow list)
+    rl_ovf_pos: np.ndarray | None = None  # int64 global hoco positions
+    rl_ovf_len: np.ndarray | None = None  # int64 exact run-length-1
+
+    @property
+    def n(self) -> int:
+        return len(self.reads)
+
+    def total_syncmers(self) -> int:
+        return sum(len(r.m_pos) for r in self.reads)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _timeit_enabled() -> bool:
+    import os
+
+    return bool(os.environ.get("OATK_TPU_TIMEIT"))
+
+
+# bytes per pipeline segment of the fused loader (tests shrink this to
+# force multi-segment splits on small inputs)
+_SEG_BYTES = 4 << 20
+
+
+def _sel_divisor(w: int, s: int) -> int:
+    """Positions-per-selected-syncmer estimate for the device capacity.
+
+    Expected closed-syncmer density is ~2/(w-s+2); at production k
+    (w>=500) observed density is ~half that, so a (w-s)/2 divisor still
+    leaves ~2x headroom.  Small k keeps the conservative (w-s)/3."""
+    return max(4, (w - s) // 2 if w >= 500 else (w - s) // 3)
+
+
+def _bucket_len(L: int) -> int:
+    """Padded row length for a read: powers of two up to 4096, then
+    multiples of 2048 (padding waste is uploaded and scanned, so the
+    grid stays fine; the row length must stay a multiple of 512)."""
+    if L <= 512:
+        return 512
+    if L <= 4096:
+        return 1 << int(np.ceil(np.log2(L)))
+    return _round_up(L, 2048)
+
+
+def _pad_rows(n: int, bsz: int) -> int:
+    """Pad a chunk's row count to a multiple of 64 (capped at the full
+    chunk size)."""
+    return min(max(64, _round_up(n, 64)), bsz)
+
+
+_false_buf = np.zeros(1 << 14, bool)
+
+
+def _false_view(n: int) -> np.ndarray:
+    """Read-only all-False view for N-free reads (Ns are rare; one
+    shared buffer replaces a per-read dense flag array)."""
+    global _false_buf
+    if n > len(_false_buf):
+        _false_buf = np.zeros(max(n, 2 * len(_false_buf)), bool)
+    return _false_buf[:n]
+
+
+def _read_isn_views(isn_pos: np.ndarray, offs: np.ndarray, n_reads: int):
+    """Per-read is_n bool arrays from the sparse ambiguous-position
+    list (positions in the same coordinates as ``offs``)."""
+    lo = np.searchsorted(isn_pos, offs[:n_reads])
+    hi = np.searchsorted(isn_pos, offs[1 : n_reads + 1])
+    out = [None] * n_reads
+    for ri in range(n_reads):
+        l0 = int(offs[ri + 1]) - int(offs[ri])
+        if hi[ri] > lo[ri]:
+            d = np.zeros(l0, bool)
+            d[isn_pos[lo[ri] : hi[ri]] - int(offs[ri])] = True
+            out[ri] = d
+        else:
+            out[ri] = _false_view(l0)
+    return out
+
+
+def _parse_pack_segment(
+    data: bytes, c0: int, c1: int, w: int, s: int, batch_bases: int, out3=None,
+    tacc: list | None = None,
+):
+    """Worker: native parse+hoco of one byte range [c0, c1), then 2-bit
+    pack all its chunks into upload blobs.  Runs off the main thread
+    (the C parse releases the GIL) so segment i+1 parses while segment
+    i's blobs upload/compute on the device.  The range is parsed in
+    place — no segment slice copy — and with ``out3`` straight into the
+    caller's whole-file arrays (no per-segment allocation either).
+    Returns (parse_result, [(chunk_read_idxs, B, Lp, max_out, n_cap,
+    blob)]) or None.  ``tacc`` collects (parse_s, pack_s) per segment
+    (worker-side CPU wall, summed across overlapped workers)."""
+    import time as _time
+
+    from .. import native
+
+    _t0 = _time.perf_counter()
+    res = native.parse_fastx_hoco(data, c0, c1, out=out3)
+    _t_parse = _time.perf_counter() - _t0
+    if res is None:
+        return None
+    names, rawlen, offs, codes, rl, isn_idx = res[:6]
+    n_reads = len(names)
+    hoco_l = (offs[1:] - offs[:-1]).astype(np.int64)
+
+    buckets: dict[int, list[int]] = {}
+    for i in range(n_reads):
+        L = max(int(hoco_l[i]), w + 4)
+        buckets.setdefault(_bucket_len(L), []).append(i)
+
+    chunks = []
+    # sparse ambiguous positions straight from the parser (parse-local
+    # coordinates, same as offs)
+    for Lp, idxs in sorted(buckets.items()):
+        bsz = max(1, batch_bases // Lp)
+        for start in range(0, len(idxs), bsz):
+            chunk = idxs[start : start + bsz]
+            B = _pad_rows(len(chunk), bsz)
+            max_out = _round_up(max(1024, int(B * Lp / _sel_divisor(w, s))), 1024)
+            st = offs[chunk]
+            en = offs[np.asarray(chunk) + 1]
+            n_pos = _chunk_n_positions(isn_idx, st, en, Lp)
+            n_cap = 0 if not len(n_pos) else _round_up(max(64, len(n_pos)), 1024)
+            # one blob = one upload; the packed grid / lengths / N
+            # positions are written straight into their blob slices
+            pk_b = B * (Lp // 4)
+            blob = np.zeros(pk_b + 4 * B + 4 * n_cap, np.uint8)
+            packed = blob[:pk_b].reshape(B, Lp // 4)
+            native.pack_rows_gather(codes, st, en, Lp // 4, out=packed)
+            hl = blob[pk_b : pk_b + 4 * B].view(np.int32)
+            hl[: len(chunk)] = (en - st).astype(np.int32)
+            n_arr = blob[pk_b + 4 * B :].view(np.int32)
+            n_arr[:] = B * Lp
+            n_arr[: len(n_pos)] = n_pos
+            chunks.append((chunk, B, Lp, max_out, n_cap, blob))
+    if tacc is not None:
+        tacc.append((_t_parse, _time.perf_counter() - _t0 - _t_parse))
+    return res, chunks
+
+
+def _chunk_n_positions(isn_idx, st, en, Lp):
+    """Row-local device slots (bi*Lp + local) of N bases for a chunk,
+    given the sorted whole-stream N-index array and per-row [st, en)
+    code ranges.  Touches only rows that actually contain Ns."""
+    lo = np.searchsorted(isn_idx, st)
+    hi = np.searchsorted(isn_idx, en)
+    if not len(isn_idx) or not (hi > lo).any():
+        return np.empty(0, np.int64)
+    parts = [
+        bi * Lp + (isn_idx[l:h] - s0)
+        for bi, (l, h, s0) in enumerate(zip(lo, hi, st))
+        if h > l
+    ]
+    return np.concatenate(parts)
+
+
+def extract_chunk(blob: np.ndarray, B, Lp, n_cap, w, s, max_out, device):
+    """Upload one chunk's blob and extract its syncmers, regrowing the
+    capacity in a loop until it holds every selected position.  Returns
+    (packed [3, max_out+1] on ``device``, n_sel, max_out)."""
+    import torch
+
+    from ..kernels.syncmer import extract_hoco_fused
+
+    blob_d = torch.from_numpy(blob).to(device)
+    while True:
+        packed = extract_hoco_fused(blob_d, B, Lp, n_cap, w, s, max_out)
+        n_sel = int(packed[0, max_out])
+        if n_sel <= max_out:
+            return packed, n_sel, max_out
+        max_out = _round_up(n_sel + 1024, 1024)
+
+
+def load_and_extract(
+    paths: list[str],
+    w: int,
+    s: int,
+    max_data: int = 0,
+    batch_bases: int = 32 << 20,
+    device="cuda",
+) -> ReadDB | None:
+    """Fused native load + device extraction + device counting.
+
+    Each file splits at record boundaries into ~``_SEG_BYTES`` segments;
+    worker threads parse and pack them while the main thread extracts
+    the previous segment's chunks on ``device`` and appends their keys to
+    a :class:`~oatk_tpu_torch.index.devcount.DevCountState`, which the
+    returned ReadDB carries as ``_devcount`` for ``collect_syncmer_db``.
+
+    Returns None when the native parser rejects the input (for example a
+    FASTA file with embedded FASTQ records)."""
+    import os as _os
+    import time as _time
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .. import native
+    from ..index.devcount import DevCountState
+    from ..io.fastx import read_source_bytes
+
+    if max_data:
+        raise NotImplementedError(
+            "-D (the capped sequential loader) is not ported to oatk_tpu_torch yet"
+        )
+    if _os.environ.get("OATK_TPU_DEVICE_HOCO", "0") not in ("", "0"):
+        raise NotImplementedError(
+            "OATK_TPU_DEVICE_HOCO: device hoco is not ported to oatk_tpu_torch yet"
+        )
+    if not native.available():
+        raise RuntimeError("the native host library (oatk_tpu/native/*.c) failed to build")
+
+    devcount = DevCountState(device)
+    db = ReadDB(k=w, s=s)
+    total_raw = 0
+    sid0 = 0
+    code_parts: list[np.ndarray] = []
+    rl_parts: list[np.ndarray] = []
+    off_parts: list[np.ndarray] = []
+    ovf_pos_parts: list[np.ndarray] = []
+    ovf_len_parts: list[np.ndarray] = []
+    off_base = 0
+    _tm: dict[str, float] = {}
+
+    def _acc(key: str, t0: float) -> float:
+        t1 = _time.perf_counter()
+        _tm[key] = _tm.get(key, 0.0) + (t1 - t0)
+        return t1
+
+    def assemble(res, sid_base, codes, rl):
+        """ReadSyncmers for one parse unit; the m_pos/s_mer/k_mer views
+        arrive with the devcount finalize (DevCountState.build)."""
+        names, _rawlen, offs, _c, _r, isn_pos = res[:6]
+        keep = len(names)
+        isn_views = _read_isn_views(isn_pos, offs, keep)
+        reads = []
+        for ri in range(keep):
+            o0, o1 = int(offs[ri]), int(offs[ri + 1])
+            reads.append(ReadSyncmers(
+                sid=sid_base + ri,
+                name=names[ri],
+                hoco_l=o1 - o0,
+                hoco_code=codes[o0:o1],
+                ho_rl=rl[o0:o1],
+                is_n=isn_views[ri],
+                m_pos=None,
+                s_mer=None,
+                k_mer=None,
+            ))
+        return reads
+
+    # pre-size the count buffers across all inputs (expected key lanes
+    # ~ padded-hoco/sel_divisor, ~0.8 x raw bytes / divisor); sizes of
+    # pipes/URLs are unknown and the buffers grow for them instead
+    tot = 0
+    for p in paths:
+        try:
+            sz = _os.path.getsize(p)
+        except (OSError, ValueError):
+            sz = 0
+        tot += int(0.8 * sz / _sel_divisor(w, s)) + (sz // _SEG_BYTES + 2) * 1024
+    devcount.cap_hint = tot
+
+    for path in paths:
+        _t0 = _time.perf_counter()
+        data = read_source_bytes(path)
+        _acc("read_bytes", _t0)
+        # fixed ~4 MB segments regardless of file size
+        n_seg = max(1, len(data) // _SEG_BYTES)
+        guard_pool = ThreadPoolExecutor(1)  # mixed-format guard scan
+        # whole-file hoco arrays: each segment parses DIRECTLY into its
+        # own byte-range region (hoco length never exceeds raw bytes, so
+        # regions are disjoint); hoco_off points at each read's true
+        # position, leaving a gap after every segment where its hoco
+        # shrank -- consumers always address one read's window
+        codes_full = np.empty(len(data), np.uint8)
+        rl_full = np.empty(len(data), np.uint8)
+        failed = False
+        seg_results: list = []
+        n_occ = 0
+        try:
+            for attempt in (0, 1):
+                _t0 = _time.perf_counter()
+                guard_fut = None
+                cuts = None
+                if n_seg > 1:
+                    if attempt == 0 and data[:1] == b">":
+                        # optimistic: split on '\n>' now; the mixed-format
+                        # guard scan runs concurrently on a worker thread
+                        cuts = native.fasta_record_cuts(data, n_seg)
+                        if cuts is not None:
+                            guard_fut = guard_pool.submit(
+                                native.find_pattern2, data, b"\n@"
+                            )
+                    else:
+                        cuts = native.segment_record_cuts(data, n_seg)
+                bounds = (
+                    [(0, len(data))] if cuts is None else list(zip(cuts[:-1], cuts[1:]))
+                )
+                _t0 = _acc("cuts", _t0)
+                seg_results = []
+                failed = False
+                n_occ = 0
+                # key lanes appended during a discarded attempt must be
+                # masked out of the device count buffers
+                att_fill = devcount.n_fill
+                seg_sid = sid0
+                n_parse = max(1, min(native.n_threads_default(), 8, len(bounds)))
+                seg_tms: list = []  # (parse_s, pack_s) per segment, worker-side
+                with ThreadPoolExecutor(n_parse) as ex:
+                    futs = [
+                        ex.submit(
+                            _parse_pack_segment, data, c0, c1, w, s, batch_bases,
+                            (codes_full[c0:c1], rl_full[c0:c1]), seg_tms,
+                        )
+                        for c0, c1 in bounds
+                    ]
+                    for (c0, _c1), fut in zip(bounds, futs):
+                        # consume in order; extract as ready
+                        _t0 = _time.perf_counter()
+                        pr = fut.result()
+                        _t0 = _acc("parse_wait", _t0)
+                        if pr is None:
+                            failed = True
+                            continue
+                        res, chunks = pr
+                        for chunk, B, Lp, max_out, n_cap, blob in chunks:
+                            packed, n_sel, max_out = extract_chunk(
+                                blob, B, Lp, n_cap, w, s, max_out, devcount.device
+                            )
+                            csids = np.asarray(chunk, np.int64) + seg_sid
+                            devcount.append(packed, csids, Lp, max_out)
+                            n_occ += n_sel
+                        _acc("extract", _t0)
+                        seg_sid += len(res[0])
+                        seg_results.append((res, c0))
+                if guard_fut is not None and guard_fut.result() >= 0:
+                    # rare mixed-format file: the optimistic '\n>' split
+                    # was unsafe; drop this attempt and redo verified
+                    if devcount.n_fill > att_fill:
+                        devcount.invalidate(att_fill, devcount.n_fill - att_fill)
+                    continue
+                break
+        finally:
+            guard_pool.shutdown(wait=True)
+        if seg_tms:
+            _tm["parse_work"] = _tm.get("parse_work", 0.0) + sum(p for p, _ in seg_tms)
+            _tm["pack_work"] = _tm.get("pack_work", 0.0) + sum(q for _, q in seg_tms)
+        if failed:
+            return None
+        devcount.n_occ += n_occ
+        _t0 = _time.perf_counter()
+        for res, vbase in seg_results:
+            names, rawlen, offs = res[0], res[1], res[2]
+            keep = len(names)
+            # the segment's reads live at [vbase, vbase+h_end) of the
+            # whole-file arrays (parse wrote in place)
+            h_end = int(offs[keep])
+            db.reads.extend(assemble(
+                res, sid0, codes_full[vbase : vbase + h_end], rl_full[vbase : vbase + h_end]
+            ))
+            total_raw += int(rawlen.sum())
+            off_parts.append(offs[:keep] + (off_base + vbase))
+            if len(res[6]):
+                # run-length overflow entries: segment-local -> global
+                ovf_pos_parts.append(res[6] + (off_base + vbase))
+                ovf_len_parts.append(res[7])
+            sid0 += keep
+        off_base += len(data)
+        code_parts.append(codes_full)
+        rl_parts.append(rl_full)
+        _acc("assemble_total", _t0)
+    if code_parts:
+        db.hoco_flat = (
+            code_parts[0] if len(code_parts) == 1 else np.concatenate(code_parts)
+        )
+        db.rl_flat = rl_parts[0] if len(rl_parts) == 1 else np.concatenate(rl_parts)
+        z = np.zeros(0, np.int64)
+        db.rl_ovf_pos = np.concatenate(ovf_pos_parts) if ovf_pos_parts else z
+        db.rl_ovf_len = np.concatenate(ovf_len_parts) if ovf_len_parts else z
+        db.hoco_off = np.concatenate(
+            off_parts + [np.asarray([off_base], np.int64)]
+        ).astype(np.int64, copy=False)
+    if devcount.n_fill > 0:
+        db._devcount = devcount  # consumed by collect_syncmer_db
+    db.load_timings = dict(_tm)
+    if _timeit_enabled() and _tm:
+        import sys as _sys
+
+        parts = " ".join(f"{k_}={v * 1000:.1f}ms" for k_, v in _tm.items())
+        print(f"[T::load_and_extract] {parts}", file=_sys.stderr, flush=True)
+    return db

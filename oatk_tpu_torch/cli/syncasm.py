@@ -1,0 +1,99 @@
+"""syncasm CLI (run_syncasm.c main analogue; PyTorch port of
+``oatk_tpu/cli/syncasm.py``, with ``--device``)."""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from ..asm.pipeline import syncasm
+from ..utils.log import print_exit_stats
+from ._common import parse_data_size
+
+
+ENV_EPILOG = """\
+environment variables:
+  OATK_TPU_THREADS       default native pool width when -t is not given
+  OATK_TPU_TIMEIT        print [T::] per-stage wall timings on stderr
+  OATK_TPU_PROFILE=DIR   write a torch.profiler device+host trace
+                         (DIR/syncasm_trace.json, Chrome trace format)
+  OATK_TPU_WF_BACKEND    wavefront DP backend: auto|numpy [auto]
+
+not ported yet (refused with an error): -D, --cpu, --shards,
+OATK_TPU_DEVICE_HOCO, OATK_TPU_DEVICE_CONSENSUS, OATK_TPU_DEVICE_EM,
+OATK_TPU_WF_BACKEND=pallas
+"""
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        prog="syncasm", description="HiFi read assembler (sparse syncmer dBG)",
+        epilog=ENV_EPILOG, formatter_class=argparse.RawDescriptionHelpFormatter,
+    )
+    p.add_argument("files", nargs="+", help="target.fa[stq][.gz] [...]")
+    p.add_argument("-k", type=int, default=1001, help="kmer size [1001]")
+    p.add_argument("-s", type=int, default=31, help="smer size (<=31) [31]")
+    p.add_argument("-c", type=int, default=3, help="minimum kmer coverage [3]")
+    p.add_argument("-a", type=float, default=0.35, help="minimum arc coverage [0.35]")
+    p.add_argument("-D", type=parse_data_size, default=0, help="max data; K/M/G suffix")
+    p.add_argument(
+        "-t", "--threads", type=int, default=1,
+        help="number of threads for every native stage (parse, align, "
+        "EC, sorts) [1]",
+    )
+    p.add_argument("-o", default="syncasm.asm", help="prefix of output files")
+    p.add_argument("--max-bubble", type=int, default=100000)
+    p.add_argument("--max-tip", type=int, default=10000)
+    p.add_argument("--weak-cross", type=float, default=0.3)
+    p.add_argument("--unzip-round", type=int, default=3)
+    p.add_argument("--no-read-ec", action="store_true")
+    p.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="device for extraction and counting [cuda]; cpu runs the "
+        "kernels' plain PyTorch versions",
+    )
+    p.add_argument("--cpu", action="store_true", help="host oracle extraction (not ported yet)")
+    p.add_argument("--shards", type=int, default=0, help="multi-device sharding (not ported yet)")
+    p.add_argument("-v", "--verbose", type=int, default=0)
+    p.add_argument("--version", action="version", version="1.0")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.cpu:
+        raise NotImplementedError("--cpu (host oracle extraction) is not ported to oatk_tpu_torch yet")
+    if args.shards:
+        raise NotImplementedError("--shards is not ported to oatk_tpu_torch yet")
+    res = syncasm(
+        args.files,
+        k=args.k,
+        s=args.s,
+        min_k_cov=args.c,
+        min_a_cov_f=args.a,
+        bubble_size=args.max_bubble,
+        tip_size=args.max_tip,
+        weak_cross=args.weak_cross,
+        do_ec=not args.no_read_ec,
+        do_unzip=args.unzip_round,
+        max_data=args.D,
+        out=args.o,
+        verbose=args.verbose,
+        threads=args.threads,
+        device=args.device,
+    )
+    if res.scg is None:
+        sys.stderr.write("[E::main] failed to construct assembly\n")
+        return 1
+    print_exit_stats("main")
+    return 0
+
+
+def _console() -> int:
+    """console_scripts entry point."""
+    import sys as _sys
+
+    return int(main(_sys.argv[1:]) or 0)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,150 @@
+"""Device extraction chain of oatk_tpu_torch (kernels/syncmer.py:
+extract_hoco_fused) against the JAX package's extract_hoco_fused_pallas
+(Pallas in interpret mode) on the same seeded blobs.  Tolerance: exact
+-- the packed rows below n_sel and the count slot must be equal."""
+import numpy as np
+import pytest
+import torch
+
+from oatk_tpu.kernels.oracle import pack_hoco
+
+
+def _blob(rng, B, Lp, w, n_pos=(), n_cap=0, dense=False):
+    """packed | hoco_l (i32) | N positions (i32, padded with B*Lp)."""
+    if dense:
+        # a short repeating motif with random breaks: near every
+        # position closes or opens a syncmer
+        codes = np.tile(rng.integers(0, 4, 7).astype(np.uint8), Lp // 7 + 1)[:Lp]
+        codes = np.stack([np.roll(codes, 3 * b) for b in range(B)])
+        codes[rng.random((B, Lp)) < 0.2] = rng.integers(0, 4)
+    else:
+        codes = rng.integers(0, 4, (B, Lp)).astype(np.uint8)
+    hl = rng.integers(w + 4, Lp + 1, B).astype(np.int32)
+    hl[0] = Lp
+    packed = np.stack([pack_hoco(codes[b]) for b in range(B)])
+    n_arr = np.full(n_cap, B * Lp, np.int32)
+    n_arr[: len(n_pos)] = sorted(n_pos)
+    return np.concatenate([packed.reshape(-1), hl.view(np.uint8), n_arr.view(np.uint8)])
+
+
+def _jax_packed(blob, B, Lp, n_cap, w, s, max_out):
+    import jax.numpy as jnp
+
+    from oatk_tpu.kernels.syncmer import extract_hoco_fused_pallas
+
+    out = extract_hoco_fused_pallas(
+        jnp.asarray(blob), B, Lp, n_cap, w, s, max_out, interpret=True
+    )
+    return np.asarray(out["packed"])
+
+
+def _torch_packed(blob, B, Lp, n_cap, w, s, max_out):
+    from oatk_tpu_torch.kernels.syncmer import extract_hoco_fused
+
+    return extract_hoco_fused(torch.from_numpy(blob), B, Lp, n_cap, w, s, max_out).numpy()
+
+
+def _assert_same(a, b, max_out):
+    n = int(a[0, max_out])
+    assert int(b[0, max_out]) == n
+    m = min(n, max_out)
+    assert np.array_equal(a[:, :m], b[:, :m])
+    return n
+
+
+@pytest.mark.parametrize(
+    "B,Lp,w,s",
+    [(5, 1024, 51, 11), (4, 2048, 15, 5), (3, 2048, 151, 13), (3, 4096, 1001, 31)],
+)
+def test_fused_matches_jax_n_free(B, Lp, w, s):
+    rng = np.random.default_rng(B * Lp + w)
+    blob = _blob(rng, B, Lp, w)
+    a = _jax_packed(blob, B, Lp, 0, w, s, 4096)
+    b = _torch_packed(blob, B, Lp, 0, w, s, 4096)
+    assert _assert_same(a, b, 4096) > 0
+
+
+@pytest.mark.parametrize("w,s", [(51, 11), (151, 13)])
+def test_fused_matches_jax_with_ns(w, s):
+    rng = np.random.default_rng(77 + w)
+    B, Lp = 6, 2048
+    n_pos = rng.choice(B * Lp, 40, replace=False).tolist() + [5, Lp + 1000]
+    n_pos = sorted(set(n_pos))
+    blob = _blob(rng, B, Lp, w, n_pos=n_pos, n_cap=1024)
+    a = _jax_packed(blob, B, Lp, 1024, w, s, 4096)
+    b = _torch_packed(blob, B, Lp, 1024, w, s, 4096)
+    assert _assert_same(a, b, 4096) > 0
+
+
+def test_dense_stream_overflowing_twice_converges(monkeypatch):
+    """A selection stream far denser than the capacity estimate: the
+    port's loader loop (asm/reads.py:extract_chunk) must regrow until the
+    result is exact, here after TWO overflows, and then equal the JAX
+    chain run through its own overflow retry."""
+    from oatk_tpu_torch.asm import reads as R
+    from oatk_tpu_torch.kernels import syncmer as K
+
+    rng = np.random.default_rng(2)
+    B, Lp, w, s = 4, 2048, 15, 5
+    blob = _blob(rng, B, Lp, w, dense=True)
+
+    # JAX: its own retry loop on the reported count (loader semantics)
+    max_out = 64
+    while True:
+        a = _jax_packed(blob, B, Lp, 0, w, s, max_out)
+        if int(a[0, max_out]) <= max_out:
+            break
+        max_out = -(-(int(a[0, max_out]) + 1024) // 1024) * 1024
+
+    calls = []
+    real = K.extract_hoco_fused
+
+    def counting(*args):
+        calls.append(args[-1])
+        return real(*args)
+
+    real_round_up = R._round_up
+    clamps = []
+
+    def clamped_round_up(x, m):
+        if not clamps:  # first regrow stays too small: a second overflow
+            clamps.append(x)
+            return 128
+        return real_round_up(x, m)
+
+    monkeypatch.setattr(K, "extract_hoco_fused", counting)
+    monkeypatch.setattr(R, "_round_up", clamped_round_up)
+    packed, n_sel, mo = R.extract_chunk(blob, B, Lp, 0, w, s, 64, "cpu")
+    assert calls[:2] == [64, 128] and len(calls) == 3  # overflowed twice
+    assert n_sel > 128 and n_sel <= mo
+    b = packed.numpy()
+    assert int(b[0, mo]) == n_sel == int(a[0, max_out])
+    assert np.array_equal(a[:, :n_sel], b[:, :n_sel])
+
+
+def test_overflowing_result_reports_exact_count():
+    rng = np.random.default_rng(4)
+    B, Lp, w, s = 2, 1024, 15, 5
+    blob = _blob(rng, B, Lp, w, dense=True)
+    full = _torch_packed(blob, B, Lp, 0, w, s, 4096)
+    n = int(full[0, 4096])
+    cut = _torch_packed(blob, B, Lp, 0, w, s, 64)
+    assert n > 64 and int(cut[0, 64]) == n  # exact, not inflated
+    assert np.array_equal(cut[:, :64], full[:, :64])
+
+
+def test_murmur_rows_match_host_oracle():
+    """MurmurHash64A on int64 bit patterns equals the numpy uint64 one
+    (kernels/hashes.py) for every tail length."""
+    from oatk_tpu.kernels.hashes import murmur64_blocks_np
+    from oatk_tpu_torch._u64 import to_numpy_u64
+    from oatk_tpu_torch.kernels.syncmer import murmur64_rows
+
+    rng = np.random.default_rng(11)
+    for n_bytes in (1, 7, 8, 9, 63, 251):
+        nblk = -(-n_bytes // 8)
+        raw = rng.integers(0, 256, (50, nblk * 8)).astype(np.uint8)
+        raw[:, n_bytes:] = 0
+        blocks = raw.view(np.uint64)
+        got = to_numpy_u64(murmur64_rows(torch.from_numpy(raw.view(np.int64)), n_bytes))
+        assert np.array_equal(got, murmur64_blocks_np(blocks, n_bytes))
