@@ -8,19 +8,36 @@ Run from the repository root, on a machine with a CUDA card:
 Phases (any failure makes the exit code non-zero):
 
 1. the card's name and power limit, and the torch / CUDA versions;
-2. build the CUDA kernel (``oatk_tpu_torch/csrc/syncmer_select.cu``) from
-   the sources in the checkout, with the compiler's register report;
-3. the kernel against its plain PyTorch version, both on the card,
-   exactly: one main-path chunk at k=1001/s=31 (2048 rows x 16384
+2. build both CUDA kernels (``oatk_tpu_torch/csrc/syncmer_select.cu``,
+   ``oatk_tpu_torch/csrc/wf_ed.cu``) from the sources in the checkout,
+   one nvcc each, started together, with the compiler's register,
+   shared-memory and spill report;
+3. the selection kernel against its plain PyTorch version, both on the
+   card, exactly: one main-path chunk at k=1001/s=31 (2048 rows x 16384
    positions = 32 Mi positions, ragged read ends, Ns at 1e-3) and small
    (w, s) cases; median times by CUDA events;
-4. full ``syncasm`` on the card and with ``device="cpu"`` (the kernels'
+4. the wavefront kernel against its plain version on the card, exactly
+   over the whole output state: 2,000 single states shaped like error
+   correction's calls at k=1001 (tl up to 5,700, ql up to 6,600, EC's
+   band, restarts from waves of up to ~200 diagonals), 40 unbanded
+   small cases, one batched launch of 256 states on both of the
+   kernel's memory routes; per-call and kernel-only times by CUDA events;
+5. full ``syncasm`` on the card and with ``device="cpu"`` (the kernels'
    plain versions) on a 1.2 Mbp set (k=151/s=13/c=3) and a ~10 Mbp set
    (k=1001/s=31/c=3): the GFAs must be byte-identical;
-5. full ``syncasm`` on the card on the 110 Mbp organelle-plus-nuclear
+6. full ``syncasm`` on the card on the 110 Mbp organelle-plus-nuclear
    set (k=1001, s=31, c=30, EC on, 3 unzip rounds): wall time, stage
    split, kernel launch count (must be above 0), peak device memory,
-   S/L line counts and the sha256 of ``.utg.final.gfa``.
+   S/L line counts and the sha256 of ``.utg.final.gfa``;
+7. ``oatk`` (syncasm -> annotation -> pathfinder) through its CLI at its
+   defaults on the same 110 Mbp set, with a stub nhmmscan written into
+   the work directory: once on the card with OATK_TPU_WF_BACKEND=device
+   (EC's wavefront on the card), once with ``--device cpu`` and the
+   default backend.  Every output file byte-identical, ``.utg.final.gfa``
+   equal to phase 6's, both kernels launched, and the wavefront launch
+   count equal to EC's wf_ed_core call count (no call left the kernel);
+   wall time, stage split, annotation and pathfinder time, peak device
+   memory.
 
 The last two lines of standard output are the card line and a JSON
 object ``{"ok": true, "device": {...}}``; the line before them lists the
@@ -51,6 +68,12 @@ SMALL_CASES = [
     (1001, 31, 8, 16384),
     (1001, 31, 4, 900),
 ]
+
+
+WF_STATES = 2000   # single states with the measured EC call distribution
+WF_BATCH = 256     # one batched launch
+WF_UNBANDED = 40   # unbanded small cases
+OATK_SUFFIXES = (".utg.gfa", ".utg.final.gfa")
 
 
 def card_line() -> str:
@@ -135,6 +158,212 @@ def phase_kernel(device, main_shape=(2048, 16384), small=SMALL_CASES, reps=10) -
     res["max_abs_err"] = worst
     res["ok"] = ok
     return res
+
+
+def event_ms(fn) -> float:
+    """Time of one fn() on the card, by CUDA events (fn ends in a
+    read-back or is followed by the synchronise here)."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def wf_case(rng):
+    """One wavefront input shaped like EC's calls at k=1001 (tl p50 ~740
+    up to 5,700, ql p50 ~1.15 tl up to 6,600, band max(ceil(0.02 tl), 6)):
+    the query is the target mutated at 0.1-1% with indels (a right
+    branch), in a third of the cases with a random tail from some point
+    on (a wrong branch, which leaves the band); in a third of them the
+    state restarts from the alignment of a prefix.  One case in twenty is
+    a long block with dense errors (2.5%) restarted at 70% of its query,
+    so that restarts start from waves of 100-200 diagonals."""
+    import numpy as np
+
+    dense = rng.random() < 0.05
+    if dense:
+        tl = int(rng.integers(3000, 5701))
+        ql = int(tl * rng.uniform(1.0, 1.15))
+    else:
+        tl = int(np.clip(rng.lognormal(np.log(740), 0.7), 10, 5700))
+        ql = int(np.clip(tl * rng.uniform(0.7, 1.6), 7, 6600))
+    ts = rng.integers(0, 4, tl).astype(np.uint8)
+    q = list(ts[: min(tl, ql)])
+    rate = 0.025 if dense else rng.uniform(0.001, 0.01) if rng.random() < 0.8 else 0.03
+    for p in sorted(rng.choice(len(q), max(1, int(len(q) * rate)), replace=False), reverse=True):
+        r = rng.random()
+        if r < 0.6:
+            q[p] = (q[p] + 1) % 4
+        elif r < 0.8:
+            del q[p]
+        else:
+            q.insert(p, int(rng.integers(4)))
+    q += list(rng.integers(0, 4, max(0, ql - len(q))))
+    qs = np.asarray(q[:ql], np.uint8)
+    if not dense and rng.random() < 1 / 3:
+        cut = int(rng.integers(0, ql))
+        qs[cut:] = rng.integers(0, 4, ql - cut)
+    bw = max(int(np.ceil(tl * 0.02)), 6)
+    if dense:
+        restart = int(0.7 * ql)
+    else:
+        restart = int(rng.integers(1, ql)) if rng.random() < 1 / 3 and ql > 1 else 0
+    return ts, qs, bw, restart
+
+
+def wf_state(ts, qs, bw, restart, device):
+    """The WfState of a case: fresh, or after aligning qs[:restart] on
+    ``device`` (through ``wf_ed_core_device``), with the whole query set."""
+    from oatk_tpu_torch.kernels.wavefront import WfState
+    from oatk_tpu_torch.kernels.wf_ed import wf_ed_core_device
+
+    st = WfState()
+    st.reset(ts)
+    st.is_ext = True
+    st.bw = bw
+    st.device = device
+    if restart:
+        st.qs = qs[:restart]
+        wf_ed_core_device(st)
+    st.qs = qs
+    return st
+
+
+def wf_tensors(states, device):
+    """Batch tensors (ts, qs, meta, k) of WfStates, at widths of exactly
+    the longest target and query (any width is allowed)."""
+    import numpy as np
+    import torch
+
+    from oatk_tpu_torch.kernels.wf_ed import BIG, d_cap_for
+
+    B = len(states)
+    TL = max(1, max(len(s.ts) for s in states))
+    QL = max(1, max(len(s.qs) for s in states))
+    D_cap = max(d_cap_for(len(s.ts), len(s.qs), len(s.wk), s.bw, s.is_ext) for s in states)
+    ts = np.zeros((B, TL), np.uint8)
+    qs = np.zeros((B, QL), np.uint8)
+    meta = np.zeros((B, 8), np.int32)
+    k = np.full((B, D_cap), -BIG, np.int32)
+    for b, s in enumerate(states):
+        ts[b, : len(s.ts)] = s.ts
+        qs[b, : len(s.qs)] = s.qs
+        meta[b, :7] = (len(s.ts), len(s.qs), int(s.is_ext), s.bw, s.score, int(s.wd[0]), len(s.wk))
+        k[b, : len(s.wk)] = s.wk
+    return [torch.from_numpy(x).to(device) for x in (ts, qs, meta, k)]
+
+
+def phase_wf(device, n_states=WF_STATES, batch=WF_BATCH, n_unbanded=WF_UNBANDED) -> dict:
+    """The wavefront kernel against its plain version on the same card
+    tensors, exactly over the full output state; per-call and kernel-only
+    times by CUDA events."""
+    import numpy as np
+    import torch
+
+    from oatk_tpu_torch.kernels import wf_ed as WE
+
+    rng = np.random.default_rng(20261017)
+    cases = [wf_case(rng) for _ in range(n_states)]
+    states = [wf_state(*c, device) for c in cases]
+    for _ in range(n_unbanded):
+        tl = int(rng.integers(1, 300))
+        ts = rng.integers(0, 4, tl).astype(np.uint8)
+        qs = ts.copy()
+        qs[rng.integers(0, tl, 1 + tl // 30)] = rng.integers(0, 4, 1 + tl // 30)
+        st = wf_state(ts, qs[: int(rng.integers(1, tl + 1))], -1, 0, device)
+        st.is_ext = bool(rng.integers(2))
+        states.append(st)
+
+    ok, worst, n_hit, n_max = True, 0, 0, 0
+    k_ms, p_ms, d_ms, timed = [], [], [], []
+    for i, st in enumerate(states):
+        x = wf_tensors([st], device)
+        om, okk = WE.wf_ed_core_batch(*x)
+        torch.cuda.synchronize()
+        om2, ok2 = WE.wf_ed_core_batch_plain(*x)
+        err = max(int((om.long() - om2.long()).abs().max()), int((okk.long() - ok2.long()).abs().max()))
+        same = torch.equal(om, om2) and torch.equal(okk, ok2) and int(om[0, 6]) == 0
+        ok &= same
+        worst = max(worst, err)
+        n_hit += int(om2[0, 3])
+        n_max = max(n_max, len(st.wk))
+        if not same:
+            log(f"[wf] MISMATCH state {i}: tl={len(st.ts)} ql={len(st.qs)} bw={st.bw} "
+                f"n={len(st.wk)} kernel {om.tolist()} plain {om2.tolist()}")
+        if 700 <= len(st.ts) <= 1000 and st.bw >= 0 and len(k_ms) < 200:
+            timed.append(st)
+            k_ms.append(event_ms(lambda: WE.wf_ed_core_batch(*x)))
+            p_ms.append(event_ms(lambda: WE.wf_ed_core_batch_plain(*x)))
+            snap = st.snapshot()
+            d_ms.append(event_ms(lambda: WE.wf_ed_core_device(st)))
+            st.restore(snap)
+    log(f"[wf] {len(states)} single states ({n_states} with EC's distribution, "
+        f"{n_unbanded} unbanded): equal={ok} max_abs_err={worst} hits={n_hit} "
+        f"largest input wave n={n_max}")
+
+    sel = states[:batch]
+    xb = wf_tensors(sel, device)
+    omb, okb = WE.wf_ed_core_batch(*xb)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    omb2, okb2 = WE.wf_ed_core_batch_plain(*xb)
+    torch.cuda.synchronize()
+    plain_b = (time.perf_counter() - t0) * 1000
+    omg, okg = WE.wf_ed_core_batch(*xb, force_global=True)
+    torch.cuda.synchronize()
+    same_b = torch.equal(omb, omb2) and torch.equal(okb, okb2)
+    same_g = torch.equal(omg, omb2) and torch.equal(okg, okb2)
+    ok &= same_b and same_g
+    b_ms = median_ms(lambda: WE.wf_ed_core_batch(*xb), 10)
+    g_ms = median_ms(lambda: WE.wf_ed_core_batch(*xb, force_global=True), 10)
+    TL, QL, D_cap = xb[0].shape[1], xb[1].shape[1], xb[3].shape[1]
+    log(f"[wf] batch B={len(sel)} TL={TL} QL={QL} D_cap={D_cap} "
+        f"(smem {WE.smem_bytes(TL, QL, D_cap)} B): equal={same_b} global route equal={same_g}; "
+        f"kernel {b_ms:.4f} ms (global route {g_ms:.4f} ms) plain {plain_b:.3f} ms (one run, host clock)")
+    med = lambda v: sorted(v)[len(v) // 2] if v else float("nan")  # noqa: E731
+    res = dict(ok=ok, max_abs_err=worst, ms=med(k_ms), plain_ms=med(p_ms))
+    log(f"[wf] B=1 at tl 700-1000 ({len(k_ms)} states, median by CUDA events): kernel "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, wf_ed_core_device per call "
+        f"(upload, launch, read-back) {med(d_ms):.4f} ms")
+    profile_wf(timed, xb)
+    return res
+
+
+def profile_wf(states, xb) -> None:
+    """torch.profiler over ``wf_ed_core_device`` on ``states`` (B=1 each) and ten
+    launches of the batch ``xb``: the kernel's own device time (these
+    CUDA-event times above include the wrapper's host work, during
+    which the card waits), and where one such call's host time goes."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from oatk_tpu_torch.kernels import wf_ed as WE
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        for st in states:
+            snap = st.snapshot()
+            WE.wf_ed_core_device(st)
+            st.restore(snap)
+        torch.cuda.synchronize()
+        for _ in range(10):
+            WE.wf_ed_core_batch(*xb)
+        torch.cuda.synchronize()
+    ker = [e.time_range.elapsed_us() for e in prof.events()
+           if "wf_ed_kernel" in e.name and e.device_type == torch.autograd.DeviceType.CUDA]
+    med = lambda v: sorted(v)[len(v) // 2] if v else float("nan")  # noqa: E731
+    b1, bb = ker[: len(states)], ker[len(states):]
+    log(f"[wf] profiler: wf_ed_kernel device time, median of {len(b1)} B=1 wf_ed_core_device calls "
+        f"{med(b1):.1f} us, of {len(bb)} B={xb[0].shape[0]} launches {med(bb):.1f} us")
+    rows = sorted(prof.key_averages(), key=lambda r: -r.self_cpu_time_total)[:8]
+    n = max(1, len(states))
+    log("[wf] profiler: host time per wf_ed_core_device call by op (self CPU us / call): " + "; ".join(
+        f"{r.key} {r.self_cpu_time_total / n:.1f}" for r in rows))
 
 
 def write_fasta(path: str, reads) -> int:
@@ -278,7 +507,168 @@ def phase_full(work: str) -> dict:
     log(f"[full] .utg.final.gfa: S={summ['S']} L={summ['L']} seg_bp={summ['seg_bp']} "
         f"sha256={summ['sha256']}")
     ok = launches > 0 and summ["S"] > 0 and res.scg is not None
-    return dict(ok=ok, launches=launches)
+    return dict(ok=ok, launches=launches, fa=fa, n_bp=n_bp, sha256=summ["sha256"])
+
+
+FAKE_NHMMSCAN = """#!/bin/bash
+# stub nhmmscan (HMMER is not a dependency of the smoke run):
+# --noali --cpu 1 -o /dev/null --tblout OUT DB IN; one mito-like hit per sequence
+out=""; db=""; fin=""
+while [[ $# -gt 0 ]]; do
+  case "$1" in
+    --tblout) out="$2"; shift 2;;
+    --noali|--cpu|-o) [[ "$1" == "--noali" ]] && shift || shift 2;;
+    *) if [[ -z "$db" ]]; then db="$1"; else fin="$1"; fi; shift;;
+  esac
+done
+: > "$out"
+i=0
+grep '^>' "$fin" | sed 's/>//' | while read -r name rest; do
+  i=$((i+1))
+  echo "nad$i - $name - 1 500 100 600 90 610 500 + 1e-30 450.0 0.5 -" >> "$out"
+done
+"""
+
+
+def run_oatk(fa: str, out: str, device: str, backend: str, exe: str, db: str) -> dict:
+    """``oatk`` through its CLI entry point at its defaults (k=1001, s=31,
+    c=30, EC on, 3 unzip rounds), with EC's wavefront backend set; the
+    stage split is read from OATK_TPU_TIMEIT's [T::syncasm] line and the
+    EC summary from the log, both captured from stderr."""
+    import contextlib
+    import io
+
+    import torch
+
+    import oatk_tpu_torch.kernels.wavefront as TW
+    from oatk_tpu_torch.cli import oatk as cli
+    from oatk_tpu_torch.pathfind import driver as pf_mod
+
+    spent = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+        return run
+
+    saved = (TW.WF_BACKEND, cli.hmm_annotate, pf_mod.pathfinder, os.environ.get("OATK_TPU_TIMEIT"))
+    TW.WF_BACKEND = backend
+    cli.hmm_annotate = timed("annotation", cli.hmm_annotate)
+    pf_mod.pathfinder = timed("pathfinder", pf_mod.pathfinder)
+    os.environ["OATK_TPU_TIMEIT"] = "1"
+    err = io.StringIO()
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(["-m", db, "--nhmmscan", exe, "--device", device, "-o", out, fa])
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        TW.WF_BACKEND, cli.hmm_annotate, pf_mod.pathfinder, timeit = saved
+        if timeit is None:
+            os.environ.pop("OATK_TPU_TIMEIT", None)
+        else:
+            os.environ["OATK_TPU_TIMEIT"] = timeit
+    text = err.getvalue()
+    lines = text.splitlines()
+    stages = next((ln for ln in lines if ln.startswith("[T::syncasm]")), "")
+    ec = [ln.split("] ", 1)[1].strip() for ln in lines if ln.startswith("[M::read_error_correction]")]
+    if rc != 0:
+        sys.stderr.write(text[-4000:])
+    return dict(rc=rc, wall=wall, stages=stages, ec=ec, spent=spent)
+
+
+def phase_oatk(work: str, fa: str, n_bp: int, syncasm_sha: str, card="cuda") -> dict:
+    """This slice's main path: ``oatk`` on the 110 Mbp set, on the card
+    with EC's wavefront kernel (OATK_TPU_WF_BACKEND=device), then with
+    ``--device cpu`` and the default backend (native batch EC); every
+    output file byte-identical, ``.utg.final.gfa`` the syncasm phase's,
+    and every EC wavefront call a kernel launch."""
+    import glob
+
+    import torch
+
+    from oatk_tpu_torch.asm.ec import read_error_correction
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+    from oatk_tpu_torch.kernels.wf_ed import wf_ed_core_batch
+
+    exe = os.path.join(work, "fake_nhmmscan")
+    with open(exe, "w") as f:
+        f.write(FAKE_NHMMSCAN)
+    os.chmod(exe, 0o755)
+    db = os.path.join(work, "fake.hmm")
+    with open(db, "w") as f:
+        f.write("dummy\n")
+    outs, runs = {}, {}
+    for label, device, backend in (("card", card, "device"), ("cpu", "cpu", "auto")):
+        d = os.path.join(work, f"oatk_{label}")
+        os.makedirs(d, exist_ok=True)
+        for old in glob.glob(os.path.join(d, "o.asm.*")):
+            os.remove(old)
+        out = os.path.join(d, "o.asm")
+        if label == "card":
+            torch.cuda.reset_peak_memory_stats()
+            syncmer_select.launches = 0
+            wf_ed_core_batch.launches = 0
+            read_error_correction.wf_calls = 0
+        r = run_oatk(fa, out, device, backend, exe, db)
+        if label == "card":
+            r.update(select=syncmer_select.launches, wf=wf_ed_core_batch.launches,
+                     wf_calls=read_error_correction.wf_calls,
+                     peak=torch.cuda.max_memory_allocated())
+        runs[label], outs[label] = r, out
+        sp = " ".join(f"{k}={v:.3f}s" for k, v in r["spent"].items())
+        log(f"[oatk] {label} run, --device {device} OATK_TPU_WF_BACKEND={backend}: rc={r['rc']} "
+            f"wall {r['wall']:.3f} s ({n_bp / 1e6 / r['wall']:.3f} Mbp/s); {sp}")
+        log(f"[oatk] {label} run {r['stages']}")
+        ec_ms = r["stages"].split(" ec=")[1].split()[0] if " ec=" in r["stages"] else "?"
+        log(f"[oatk] {label} run ec stage {ec_ms}; EC: " + "; ".join(r["ec"][1:5]))
+    c = runs["card"]
+    log(f"[oatk] card run: syncmer_select launches={c['select']} wf_ed launches={c['wf']} "
+        f"EC wf_ed_core calls={c['wf_calls']} max_memory_allocated={c['peak']} B")
+
+    names = {lb: sorted(os.path.basename(p)[len("o.asm"):] for p in glob.glob(outs[lb] + ".*"))
+             for lb in outs}
+    ok = all(r["rc"] == 0 for r in runs.values()) and names["card"] == names["cpu"]
+    ok &= all(s in names["card"] for s in OATK_SUFFIXES)
+    for suf in names["card"]:
+        a = gfa_summary(outs["card"] + suf)
+        b = gfa_summary(outs["cpu"] + suf)
+        same = a["sha256"] == b["sha256"] and a["bytes"] > 0
+        ok &= same
+        log(f"[oatk] {suf}: identical={same} bytes={a['bytes']} sha256={a['sha256'][:16]}")
+    final = gfa_summary(outs["card"] + ".utg.final.gfa")["sha256"]
+    same_final = final == syncasm_sha
+    log(f"[oatk] .utg.final.gfa equals the syncasm phase's: {same_final}")
+    ok &= same_final and c["select"] > 0 and c["wf"] > 0 and c["wf"] == c["wf_calls"]
+    return dict(ok=ok, launches=c["wf"], select=c["select"])
+
+
+def build_kernels(mods: dict) -> None:
+    """Build every kernel from the checkout's sources, one nvcc per
+    source, all started together; print each build's seconds and the
+    compiler's register, shared-memory and spill report."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(mod):
+        t0 = time.perf_counter()
+        report = mod.build()
+        mod._load()
+        return time.perf_counter() - t0, report
+
+    with ThreadPoolExecutor(len(mods)) as ex:
+        futs = {name: ex.submit(one, mod) for name, mod in mods.items()}
+    for name, fut in futs.items():
+        secs, report = fut.result()
+        log(f"[build] {name} built in {secs:.3f} s")
+        for ln in report.splitlines():
+            if "registers" in ln or "spill" in ln or "smem" in ln:
+                log(f"[build] {name}: {ln.strip()}")
 
 
 def main() -> int:
@@ -296,6 +686,7 @@ def main() -> int:
         import genome_sim  # noqa: F401  (dataset generator)
 
         from oatk_tpu_torch.kernels import syncmer_select as SS
+        from oatk_tpu_torch.kernels import wf_ed as WE
     except ImportError as e:
         print(f"chip_smoke: run from the repository root ({e})", file=sys.stderr)
         return 2
@@ -308,19 +699,17 @@ def main() -> int:
     os.makedirs(WORK, exist_ok=True)
     ok = True
 
-    t0 = time.perf_counter()
-    report = SS.build()
-    SS._load()
-    log(f"[build] syncmer_select.cu built in {time.perf_counter() - t0:.3f} s")
-    for ln in report.splitlines():
-        if "registers" in ln or "spill" in ln or "smem" in ln:
-            log(f"[build] {ln.strip()}")
+    build_kernels({"syncmer_select.cu": SS, "wf_ed.cu": WE})
 
     kern = phase_kernel("cuda")
     ok &= kern["ok"]
+    wf = phase_wf("cuda")
+    ok &= wf["ok"]
     ok &= phase_parity(WORK)
     full = phase_full(WORK)
     ok &= full["ok"]
+    oatk = phase_oatk(WORK, full["fa"], full["n_bp"], full["sha256"])
+    ok &= oatk["ok"]
 
     kernels = {"kernels": [{
         "name": "syncmer_select",
@@ -331,6 +720,15 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+    }, {
+        "name": "wf_ed",
+        "route": "cuda",
+        "source": "oatk_tpu_torch/csrc/wf_ed.cu",
+        "replaces": "oatk_tpu/kernels/wavefront_pallas.py:169",
+        "launches": oatk["launches"],
+        "max_abs_err": wf["max_abs_err"],
+        "ms": wf["ms"],
+        "plain_ms": wf["plain_ms"],
     }]}
     if not ok:
         log("[done] a phase failed")

@@ -115,6 +115,7 @@ def _dfs_search(g, dfs: _DfsInfo, sink: int, conf: WfState):
 
         conf.qs = np.frombuffer(bytes(c_seq), np.uint8)
         wf_ed_core(conf)
+        read_error_correction.wf_calls += 1
 
         score = conf.score + len(conf.ts) - conf.t_end
         if score <= conf.bw and (sink == -1 or sink == w):
@@ -280,8 +281,8 @@ def _correct_reads_native(
     from .. import native
     from ..kernels import wavefront as _wf
 
-    # an explicit wavefront backend (numpy) must actually drive EC:
-    # route through the Python loop + wf_ed_core
+    # an explicit wavefront backend (device / numpy) must actually drive
+    # EC: route through the Python loop + wf_ed_core
     cap = _wf.WF_BACKEND == "auto" and native.available()
     if not cap:
         return False
@@ -463,7 +464,12 @@ def read_error_correction(
     err_arc_c: int,
     max_arc_f: float,
     verbose: int = 0,
+    device="cpu",
 ):
+    """Correct the reads in place.  ``device`` is where the wavefront
+    core runs under OATK_TPU_WF_BACKEND=device; each wf_ed_core call of
+    the Python DFS adds one to ``read_error_correction.wf_calls`` (the
+    native batch corrector of the default backend makes none)."""
     import time
 
     cpu0, real0 = time.process_time(), time.time()
@@ -477,6 +483,7 @@ def read_error_correction(
 
         ensure_vtx_seq(scg.utg)
         conf = WfState()
+        conf.device = device
         dfs = _DfsInfo()
         for r in read_db.reads:
             _correct_read(r, scg, max_edist, stats, conf, dfs)
@@ -508,3 +515,6 @@ def read_error_correction(
         p(f"     error blocks overlapped : {stats[10]}")
         p(f"  error correction  CPU time : {time.process_time() - cpu0:.3f} sec")
         p(f"  error correction real time : {time.time() - real0:.3f} sec")
+
+
+read_error_correction.wf_calls = 0

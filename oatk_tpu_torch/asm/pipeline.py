@@ -7,8 +7,10 @@ pre-unzip clean (tips only when unzipping) -> unzip rounds ->
 demultiplex -> coverage estimation -> final clean -> consensus GFA.
 
 Extraction and counting run on ``device`` (the fused loader and the
-device count state); every later stage is the JAX package's host code
-(numpy + the shared native C library), carried unchanged.
+device count state), and so does error correction's wavefront core
+under OATK_TPU_WF_BACKEND=device; every other stage is the JAX
+package's host code (numpy + the shared native C library), carried
+unchanged.
 """
 from __future__ import annotations
 
@@ -188,7 +190,8 @@ def _syncasm_impl(
         scg_consensus(read_db, scg0, hoco_seq=True, save_seq=True, fo=None)
         _t("ec_consensus0")
         read_error_correction(
-            read_db, scg0, 0.02, min_k_cov, min_k_cov * 10, min_k_cov, min_a_cov_f, verbose
+            read_db, scg0, 0.02, min_k_cov, min_k_cov * 10, min_k_cov, min_a_cov_f, verbose,
+            device=device,
         )
         _t("ec")
         read_db_stat(read_db, sys.stderr, verbose)

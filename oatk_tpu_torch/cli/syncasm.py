@@ -16,11 +16,12 @@ environment variables:
   OATK_TPU_TIMEIT        print [T::] per-stage wall timings on stderr
   OATK_TPU_PROFILE=DIR   write a torch.profiler device+host trace
                          (DIR/syncasm_trace.json, Chrome trace format)
-  OATK_TPU_WF_BACKEND    wavefront DP backend: auto|numpy [auto]
+  OATK_TPU_WF_BACKEND    wavefront DP backend: auto|numpy|device [auto];
+                         device runs EC's wavefront kernel on --device
+                         (pallas is accepted as the same value)
 
 not ported yet (refused with an error): -D, --cpu, --shards,
-OATK_TPU_DEVICE_HOCO, OATK_TPU_DEVICE_CONSENSUS, OATK_TPU_DEVICE_EM,
-OATK_TPU_WF_BACKEND=pallas
+OATK_TPU_DEVICE_HOCO, OATK_TPU_DEVICE_CONSENSUS, OATK_TPU_DEVICE_EM
 """
 
 

@@ -20,16 +20,14 @@ back.  Each launch adds one to ``syncmer_select.launches``.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 import threading
 
 import torch
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "syncmer_select.cu")
-_SO = os.path.join(os.path.dirname(_PKG), "build", "kernels", "libsyncmer_select.so")
+from . import cuda_build
+
+_SRC = cuda_build.source("syncmer_select.cu")
+_SO = f"{cuda_build.SO_DIR}/libsyncmer_select.so"
 
 I64MAX = (1 << 63) - 1
 MAX_TILE = 2048
@@ -38,35 +36,9 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError("nvcc not found: the syncmer_select CUDA kernel cannot be built")
-    return nvcc
-
-
 def build() -> str:
-    """Compile the kernel (if the shared library is missing or older than
-    its source) and return the compiler's report (``-Xptxas -v``:
-    registers, shared memory, spills); empty when nothing was built."""
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return ""
-    os.makedirs(os.path.dirname(_SO), exist_ok=True)
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", tmp, _SRC,
-    ]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}) building {_SRC}:\n{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, _SO)
-    return res.stdout + res.stderr
+    """Compile the kernel if needed; returns the compiler's report."""
+    return cuda_build.build(_SRC, _SO)
 
 
 def _load():

@@ -7,9 +7,9 @@ calls -- the property the error-correction DFS relies on
 (reference levdist.c:48-440, stepwise API validated by the
 reference's LEVDIST_TEST_STEP).
 
-Host NumPy implementation; sequences per EC block are short (~100s bp)
-and the DFS is control-flow heavy, so the wavefront core stays on host
-while upstream batching keeps the device busy elsewhere.
+Host cores (NumPy and the shared native C library), and the ``device``
+backend: the hand-written CUDA kernel of :mod:`.wf_ed` on
+``WfState.device`` (its plain PyTorch version on a CPU device).
 """
 from __future__ import annotations
 
@@ -34,6 +34,8 @@ class WfState:
     wk: np.ndarray = field(default_factory=lambda: np.full(1, -1, np.int64))
     # optional traceback: per step (d0, packed 2-bit parent codes)
     tb: list | None = None
+    # where the 'device' backend runs the core (a torch device or its name)
+    device: object = "cpu"
 
     def reset(self, ts: np.ndarray):
         self.ts = ts
@@ -182,21 +184,25 @@ def _wf_ed_core_native(st: WfState) -> bool:
 
 
 # wavefront core backend: 'auto' = native C with numpy fallback,
-# 'numpy' = host reference.  Settable via OATK_TPU_WF_BACKEND; the JAX
-# package's 'pallas' device backend has no CUDA kernel yet and is refused.
+# 'numpy' = host reference, 'device' = the wavefront kernel on
+# WfState.device (kernels/wf_ed.py; 'pallas' is the JAX package's
+# spelling of the same value).  Settable via OATK_TPU_WF_BACKEND; the EC
+# DFS goes through wf_ed_core, so 'device' drives the whole error
+# correction through the kernel, with no length cap and no fallback.
 import os as _os
 
 WF_BACKEND = _os.environ.get("OATK_TPU_WF_BACKEND", "auto")
+DEVICE_BACKENDS = ("device", "pallas")
 
 
 def wf_ed_core(st: WfState):
     """Run wavefront steps until an end is reached or the band is
     exceeded; resumes from the current state (stepwise restart)."""
-    if WF_BACKEND == "pallas":
-        raise NotImplementedError(
-            "OATK_TPU_WF_BACKEND=pallas: the device wavefront kernel is not "
-            "ported to oatk_tpu_torch yet"
-        )
+    if WF_BACKEND in DEVICE_BACKENDS and st.tb is None:
+        from .wf_ed import wf_ed_core_device
+
+        wf_ed_core_device(st)
+        return
     if WF_BACKEND != "numpy" and st.tb is None and _wf_ed_core_native(st):
         return
     t_end = q_end = -1

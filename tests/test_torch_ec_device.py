@@ -1,0 +1,132 @@
+"""Error correction through the port's ``device`` wavefront backend
+(OATK_TPU_WF_BACKEND=device), on the CPU, where ``wf_ed_core_device`` runs
+the kernel's plain PyTorch version: reads spliced exactly as the JAX
+package's EC through its Pallas backend (interpret mode) splices them,
+and a full syncasm whose GFAs are byte-identical to the JAX package's
+default run.  Every wf_ed_core call of the Python DFS reaches the plain
+version once.  Tolerance: exact."""
+import numpy as np
+import pytest
+
+from genome_sim import random_genome, sample_reads, write_reads
+
+import oatk_tpu_torch.kernels.wavefront as TW
+from oatk_tpu_torch.asm import ec as TEC
+from oatk_tpu_torch.kernels import wf_ed as WE
+
+
+@pytest.fixture
+def count_plain(monkeypatch):
+    """Count calls of the plain version (what a launch is on a card)."""
+    calls = [0]
+    real = WE.wf_ed_core_batch_plain
+
+    def counted(*a):
+        calls[0] += 1
+        return real(*a)
+
+    monkeypatch.setattr(WE, "wf_ed_core_batch_plain", counted)
+    return calls
+
+
+def test_ec_splices_as_jax_pallas(tmp_path, monkeypatch, count_plain):
+    """9 kbp genome at 10x of 1.6 kbp reads, k=151/s=13 (the setup of
+    test_ec_through_pallas_backend): the port's Python EC on the device
+    backend against oatk_tpu's on its pallas backend."""
+    import oatk_tpu.kernels.wavefront as W
+    import oatk_tpu.kernels.wavefront_pallas as WP
+    from oatk_tpu.asm import ec as JEC
+    from oatk_tpu.asm.consensus import scg_consensus as j_consensus
+    from oatk_tpu.asm.pipeline import load_reads as j_load
+    from oatk_tpu.asm.scg import make_syncmer_graph as j_graph
+    from oatk_tpu.index.syncmer_db import collect_syncmer_db as j_collect
+    from oatk_tpu_torch.asm.consensus import scg_consensus as t_consensus
+    from oatk_tpu_torch.asm.pipeline import load_reads as t_load
+    from oatk_tpu_torch.asm.scg import make_syncmer_graph as t_graph
+    from oatk_tpu_torch.index.syncmer_db import collect_syncmer_db as t_collect
+
+    rng = np.random.default_rng(12345)
+    g = random_genome(rng, 9000)
+    fa = str(tmp_path / "r.fa")
+    write_reads(fa, sample_reads(rng, g, coverage=10, read_len=1600, err_rate=0.003))
+
+    j_calls = [0]
+    real_pallas = WP.wf_ed_core_pallas
+
+    def j_counted(st, interpret=True):
+        j_calls[0] += 1
+        return real_pallas(st, interpret=interpret)
+
+    monkeypatch.setattr(WP, "wf_ed_core_pallas", j_counted)
+    monkeypatch.setattr(W, "WF_BACKEND", "pallas")
+    rd_j = j_load([fa], 151, 13, 0, True)
+    scg = j_graph(rd_j, j_collect(rd_j), 0, 0.0)
+    j_consensus(rd_j, scg, hoco_seq=True, save_seq=True, fo=None)
+    JEC.read_error_correction(rd_j, scg, 0.02, 2, 20, 2, 0.35, 0)
+
+    monkeypatch.setattr(TW, "WF_BACKEND", "device")
+    monkeypatch.setattr(TEC.read_error_correction, "wf_calls", 0)
+    rd_t = t_load([fa], 151, 13, 0, "cpu")
+    scg = t_graph(rd_t, t_collect(rd_t), 0, 0.0)
+    t_consensus(rd_t, scg, hoco_seq=True, save_seq=True, fo=None)
+    TEC.read_error_correction(rd_t, scg, 0.02, 2, 20, 2, 0.35, 0, device="cpu")
+
+    assert len(rd_j.reads) == len(rd_t.reads) > 0
+    for r1, r2 in zip(rd_j.reads, rd_t.reads):
+        assert np.array_equal(r1.k_mer, r2.k_mer)
+        assert np.array_equal(r1.m_pos, r2.m_pos)
+    calls = TEC.read_error_correction.wf_calls
+    assert calls > 0 and calls == count_plain[0] == j_calls[0]
+
+
+@pytest.fixture(scope="module")
+def reads_1p2mbp(tmp_path_factory):
+    """a(20 kbp) + rep(1.5 kbp) + b(16 kbp) + rep at 30x of 4 kbp reads
+    (about 1.2 Mbp; the set of test_torch_syncasm.py)."""
+    rng = np.random.default_rng(7)
+    a = random_genome(rng, 20_000)
+    rep = random_genome(rng, 1_500)
+    b = random_genome(rng, 16_000)
+    reads = sample_reads(rng, a + rep + b + rep, coverage=30, read_len=4000,
+                         err_rate=0.002, hp_frac=0.85)
+    path = tmp_path_factory.mktemp("ecdev") / "reads.fa"
+    write_reads(str(path), reads)
+    return str(path)
+
+
+def test_syncasm_device_backend_gfa_byte_identical(reads_1p2mbp, tmp_path, monkeypatch, count_plain):
+    """Full syncasm, k=151/s=13/c=3, EC on, 3 unzip rounds: the port on
+    the CPU with OATK_TPU_WF_BACKEND=device against oatk_tpu's default
+    run (native batch EC)."""
+    import oatk_tpu.asm.pipeline as J
+    import oatk_tpu_torch.asm.pipeline as T
+
+    oj, ot = str(tmp_path / "jax"), str(tmp_path / "torch")
+    rj = J.syncasm([reads_1p2mbp], k=151, s=13, min_k_cov=3, do_ec=True, do_unzip=3, out=oj)
+    monkeypatch.setattr(TW, "WF_BACKEND", "device")
+    monkeypatch.setattr(TEC.read_error_correction, "wf_calls", 0)
+    rt = T.syncasm([reads_1p2mbp], k=151, s=13, min_k_cov=3, do_ec=True, do_unzip=3,
+                   out=ot, device="cpu")
+    assert rj.scg is not None and rt.scg is not None
+    for suf in (".utg.gfa", ".utg.final.gfa"):
+        with open(oj + suf, "rb") as f:
+            a = f.read()
+        with open(ot + suf, "rb") as f:
+            b = f.read()
+        assert a.count(b"\nS\t") >= 1
+        assert a == b, suf
+    # every EC call of the DFS went through wf_ed_core_device (the
+    # count is a property of the data: 1,159 calls on this set)
+    assert TEC.read_error_correction.wf_calls == count_plain[0] == 1159
+
+
+def test_default_backend_makes_no_wavefront_calls(reads_1p2mbp, tmp_path, monkeypatch, count_plain):
+    """The default backend keeps the native batch corrector: no Python
+    DFS call, no plain-version call, and the same GFA bytes."""
+    import oatk_tpu_torch.asm.pipeline as T
+
+    monkeypatch.setattr(TW, "WF_BACKEND", "auto")
+    monkeypatch.setattr(TEC.read_error_correction, "wf_calls", 0)
+    T.syncasm([reads_1p2mbp], k=151, s=13, min_k_cov=3, do_ec=True, do_unzip=0,
+              out=str(tmp_path / "auto"), device="cpu")
+    assert TEC.read_error_correction.wf_calls == 0 and count_plain[0] == 0

@@ -1,7 +1,8 @@
 """The card's machine has no JAX.  In a subprocess whose import system
 refuses ``jax`` (and so ``oatk_tpu``, whose __init__ imports it), every
-oatk_tpu_torch module must import and the syncasm CLI must run on a
-small FASTA with --device cpu."""
+oatk_tpu_torch module must import, and the syncasm and oatk CLIs must
+run on a small FASTA with --device cpu (oatk with the stub nhmmscan and
+EC's wavefront on the device backend)."""
 import os
 import pathlib
 import subprocess
@@ -33,9 +34,11 @@ for n in names:
 assert "jax" not in sys.modules and "oatk_tpu" not in sys.modules
 print("IMPORTED", len(names))
 
-from oatk_tpu_torch.cli.syncasm import main
-rc = main(sys.argv[1:])
+cli = importlib.import_module("oatk_tpu_torch.cli." + sys.argv[1])
+rc = cli.main(sys.argv[2:])
 assert "jax" not in sys.modules and "oatk_tpu" not in sys.modules
+from oatk_tpu_torch.asm.ec import read_error_correction
+print("WF_CALLS", read_error_correction.wf_calls)
 print("RC", rc)
 sys.exit(rc)
 """
@@ -49,7 +52,7 @@ def test_port_runs_without_jax(tmp_path):
     out = tmp_path / "asm"
     env = dict(os.environ, PYTHONPATH=str(REPO))
     r = subprocess.run(
-        [sys.executable, "-c", _CHILD, str(fa), "-k", "51", "-s", "11", "-c", "2",
+        [sys.executable, "-c", _CHILD, "syncasm", str(fa), "-k", "51", "-s", "11", "-c", "2",
          "--device", "cpu", "-o", str(out)],
         capture_output=True, text=True, cwd=str(tmp_path), env=env, timeout=300,
     )
@@ -58,6 +61,32 @@ def test_port_runs_without_jax(tmp_path):
     for suf in (".utg.gfa", ".utg.final.gfa"):
         text = (tmp_path / f"asm{suf}").read_text()
         assert "\nS\t" in text
+
+
+def test_port_oatk_runs_without_jax(tmp_path):
+    from test_tools_parity import FAKE_NHMMSCAN
+
+    rng = np.random.default_rng(5)
+    g = random_genome(rng, 12000)
+    fa = tmp_path / "r.fa"
+    write_reads(str(fa), sample_reads(rng, g, coverage=14, read_len=2500, err_rate=0.002))
+    exe = tmp_path / "fake_nhmmscan"
+    exe.write_text(FAKE_NHMMSCAN.replace("gene$i", "nad$i"))
+    exe.chmod(0o755)
+    (tmp_path / "fake.hmm").write_text("dummy\n")
+    env = dict(os.environ, PYTHONPATH=str(REPO), OATK_TPU_WF_BACKEND="device")
+    r = subprocess.run(
+        [sys.executable, "-c", _CHILD, "oatk", str(fa), "-k", "151", "-s", "13", "-c", "3",
+         "-m", str(tmp_path / "fake.hmm"), "--nhmmscan", str(exe), "--device", "cpu",
+         "-o", str(tmp_path / "asm")],
+        capture_output=True, text=True, cwd=str(tmp_path), env=env, timeout=300,
+    )
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "RC 0" in r.stdout
+    assert "error blocks" in r.stderr  # EC ran, through wf_ed_core_device
+    assert int(r.stdout.split("WF_CALLS ")[1].split()[0]) > 0
+    for suf in (".utg.final.gfa", ".annot_mito.txt", ".mito.ctg.fasta"):
+        assert (tmp_path / f"asm{suf}").stat().st_size > 0
 
 
 def test_no_jax_import_in_sources():
