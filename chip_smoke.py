@@ -37,7 +37,29 @@ Phases (any failure makes the exit code non-zero):
    equal to phase 6's, both kernels launched, and the wavefront launch
    count equal to EC's wf_ed_core call count (no call left the kernel);
    wall time, stage split, annotation and pathfinder time, peak device
-   memory.
+   memory;
+8. ``syncasm -D 55M`` through its CLI at 110 Mbp (the capped sequential
+   loader, host counting) on the card and with ``--device cpu``: GFAs
+   byte-identical, the data-limit line printed, fewer reads than phase 6,
+   selection kernel launched;
+9. OATK_TPU_COUNT=host (each chunk's rows fetched, host sort) at 110 and
+   9.9 Mbp on the card: ``.utg.final.gfa`` equal to the device-count
+   runs' (phases 6 and 5); load and collect_db times beside theirs;
+10. OATK_TPU_DEVICE_HOCO=1 at 110 Mbp on the card (Python reader, raw
+    ASCII upload, hoco phase on the card): ``.utg.final.gfa`` equal to
+    phase 6's, every read's hoco codes, run lengths and N flags equal to
+    phase 6's native-parse ReadDB; load time, bytes uploaded, peak memory;
+11. a mixed FASTA/FASTQ file (the 9.9 Mbp reads, every other record as
+    FASTQ) on the card and the CPU: the native loader steps aside, the
+    Python reader's route extracts on the card, GFAs byte-identical;
+12. OATK_TPU_DEVICE_CONSENSUS=1 at 110 Mbp on the card: ``.utg.final.gfa``
+    equal to phase 6's; device call count and consensus stage times;
+13. OATK_TPU_DEVICE_EM=1 at 110 Mbp on the card: at every EM call the
+    card's coverage within max |dev - host| / max(1, |host|) <= 1e-9 of
+    the host loop on the same inputs and iteration counts at most 2
+    apart; whether ``.utg.final.gfa`` equals phase 6's is reported;
+14. ``syncasm --cpu`` (host oracle extraction) through its CLI at 1.2 Mbp
+    with ``--device cuda``: GFAs equal to phase 5's card GFAs.
 
 The last two lines of standard output are the card line and a JSON
 object ``{"ok": true, "device": {...}}``; the line before them lists the
@@ -47,7 +69,9 @@ from fixed seeds into ``build/chip_smoke/`` (git-ignored).
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
+import io
 import json
 import os
 import subprocess
@@ -437,6 +461,21 @@ def dataset_110mbp(work: str) -> tuple[str, int]:
     return path, n
 
 
+@contextlib.contextmanager
+def env_set(**kv):
+    """Set environment variables for the block, then restore them."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def run_syncasm(fa: str, k: int, s: int, c: int, out: str, device, ec=True, unzip=3):
     import torch
 
@@ -464,25 +503,31 @@ def gfa_summary(path: str) -> dict:
     )
 
 
-def phase_parity(work: str) -> bool:
-    """Card vs CPU (plain versions) GFAs, byte for byte."""
+def phase_parity(work: str) -> dict:
+    """Card vs CPU (plain versions) GFAs, byte for byte.  Returns ok and,
+    per set, its file, (k, s, c), the card GFAs' sha256 and the card
+    run's stage split."""
     ok = True
     sets = [("1p2mbp", dataset_small(work), 151, 13, 3), ("10mbp", dataset_10mbp(work), K_MAIN, S_MAIN, 3)]
+    info = {}
     for name, fa, k, s, c in sets:
         outs = {}
         for dev in ("cuda", "cpu"):
             out = os.path.join(work, f"{name}_{dev}")
-            _res, wall = run_syncasm(fa, k, s, c, out, dev)
+            res, wall = run_syncasm(fa, k, s, c, out, dev)
             outs[dev] = out
+            if dev == "cuda":
+                info[name] = dict(fa=fa, ksc=(k, s, c), timings=res.timings or {}, sha={})
             log(f"[parity] {name} k={k} s={s} c={c} device={dev}: wall {wall:.3f} s")
         for suf in (".utg.gfa", ".utg.final.gfa"):
             a = gfa_summary(outs["cuda"] + suf)
             b = gfa_summary(outs["cpu"] + suf)
             same = a["sha256"] == b["sha256"]
             ok &= same and a["S"] > 0
+            info[name]["sha"][suf] = a["sha256"]
             log(f"[parity] {name}{suf}: identical={same} S={a['S']} L={a['L']} "
                 f"bytes={a['bytes']} (cpu S={b['S']} bytes={b['bytes']})")
-    return ok
+    return dict(ok=ok, sets=info)
 
 
 def phase_full(work: str) -> dict:
@@ -507,7 +552,8 @@ def phase_full(work: str) -> dict:
     log(f"[full] .utg.final.gfa: S={summ['S']} L={summ['L']} seg_bp={summ['seg_bp']} "
         f"sha256={summ['sha256']}")
     ok = launches > 0 and summ["S"] > 0 and res.scg is not None
-    return dict(ok=ok, launches=launches, fa=fa, n_bp=n_bp, sha256=summ["sha256"])
+    return dict(ok=ok, launches=launches, fa=fa, n_bp=n_bp, sha256=summ["sha256"],
+                read_db=res.read_db, timings=res.timings or {})
 
 
 FAKE_NHMMSCAN = """#!/bin/bash
@@ -649,6 +695,345 @@ def phase_oatk(work: str, fa: str, n_bp: int, syncasm_sha: str, card="cuda") -> 
     return dict(ok=ok, launches=c["wf"], select=c["select"])
 
 
+def run_cli(main, argv: list) -> dict:
+    """A CLI entry point with OATK_TPU_TIMEIT on and stderr captured:
+    exit code, wall time, the [T::syncasm] stage line, the read count
+    from the log, and the whole stderr text."""
+    import torch
+
+    err = io.StringIO()
+    with env_set(OATK_TPU_TIMEIT="1"), contextlib.redirect_stderr(err):
+        t0 = time.perf_counter()
+        rc = main(argv)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    text = err.getvalue()
+    if rc != 0:
+        sys.stderr.write(text[-4000:])
+    lines = text.splitlines()
+    stages = next((ln for ln in lines if ln.startswith("[T::syncasm]")), "")
+    n_reads = next((int(ln.split(" from ")[1].split()[0]) for ln in lines
+                    if ln.startswith("[M::syncasm] collected syncmers from")), -1)
+    return dict(rc=rc, wall=wall, stages=stages, n_reads=n_reads, text=text)
+
+
+def stage_ms(timings: dict, *names) -> str:
+    return " ".join(f"{n}={timings.get(n, float('nan')) * 1000:.1f}ms" for n in names)
+
+
+def same_gfas(tag: str, card_out: str, cpu_out: str) -> bool:
+    """Both GFAs of a card run and its CPU twin byte-identical (and not
+    empty), one log line each."""
+    ok = True
+    for suf in OATK_SUFFIXES:
+        a, b = gfa_summary(card_out + suf), gfa_summary(cpu_out + suf)
+        same = a["sha256"] == b["sha256"] and a["S"] > 0
+        ok &= same
+        log(f"[{tag}] {suf}: identical={same} S={a['S']} L={a['L']} sha256={a['sha256'][:16]}")
+    return ok
+
+
+def phase_capped(work: str, fa: str, n_reads_full: int, cap: str = "55M") -> dict:
+    """``syncasm -D 55M`` through the CLI at 110 Mbp, on the card and with
+    ``--device cpu``: byte-identical GFAs, the data-limit line, fewer
+    reads than the uncapped run, and the selection kernel launched."""
+    import torch
+
+    from oatk_tpu_torch.cli._common import parse_data_size
+    from oatk_tpu_torch.cli.syncasm import main as syncasm_main
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(work, f"capped_{dev}")
+        argv = [fa, "-k", str(K_MAIN), "-s", str(S_MAIN), "-c", "30", "-D", cap,
+                "--device", dev, "-o", out]
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            syncmer_select.launches = 0
+        r = run_cli(syncasm_main, argv)
+        if dev == "cuda":
+            r.update(launches=syncmer_select.launches, peak=torch.cuda.max_memory_allocated())
+        r["out"] = out
+        runs[dev] = r
+        log(f"[capped] -D {cap} --device {dev}: rc={r['rc']} wall {r['wall']:.3f} s, "
+            f"{r['n_reads']} reads (uncapped {n_reads_full})")
+        log(f"[capped] --device {dev} {r['stages']}")
+    c = runs["cuda"]
+    limit = (f"[M::sr_read] data limit ({parse_data_size(cap)}) reached. "
+             "Discard the remaining sequences...")
+    if any(r["rc"] != 0 for r in runs.values()):
+        return dict(ok=False, launches=c["launches"])
+    ok = all(limit in r["text"] for r in runs.values())
+    ok &= 0 < c["n_reads"] < n_reads_full and c["n_reads"] == runs["cpu"]["n_reads"]
+    ok &= same_gfas("capped", c["out"], runs["cpu"]["out"])
+    log(f"[capped] card run: data-limit line={limit in c['text']} syncmer_select "
+        f"launches={c['launches']} max_memory_allocated={c['peak']} B")
+    ok &= c["launches"] > 0
+    return dict(ok=ok, launches=c["launches"])
+
+
+def phase_host_count(work: str, full: dict, parity: dict) -> dict:
+    """OATK_TPU_COUNT=host on the card at 110 and 9.9 Mbp: the final GFA
+    equals the device-count run's; load and collect_db beside it."""
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+
+    p10 = parity["sets"]["10mbp"]
+    cases = [("110mbp", full["fa"], (K_MAIN, S_MAIN, 30), full["sha256"], full["timings"]),
+             ("10mbp", p10["fa"], p10["ksc"], p10["sha"][".utg.final.gfa"], p10["timings"])]
+    ok, launches = True, {}
+    for name, fa, (k, s, c), ref_sha, ref_tm in cases:
+        out = os.path.join(work, f"hostcount_{name}")
+        syncmer_select.launches = 0
+        with env_set(OATK_TPU_COUNT="host"):
+            res, wall = run_syncasm(fa, k, s, c, out, "cuda")
+        launches[name] = syncmer_select.launches
+        sha = gfa_summary(out + ".utg.final.gfa")["sha256"]
+        same = sha == ref_sha
+        # collect_syncmer_db keeps the device count state it consumed
+        ok &= same and launches[name] > 0 and not hasattr(res.read_db, "_devcount_stats")
+        log(f"[hostcount] {name}: wall {wall:.3f} s; .utg.final.gfa equals the device-count "
+            f"run's: {same} (sha256 {sha[:16]}); syncmer_select launches={launches[name]}")
+        log(f"[hostcount] {name}: host count {stage_ms(res.timings or {}, 'load', 'collect_db')}; "
+            f"device count {stage_ms(ref_tm, 'load', 'collect_db')}")
+    return dict(ok=ok, launches=launches["110mbp"])
+
+
+def phase_device_hoco(work: str, full: dict) -> dict:
+    """OATK_TPU_DEVICE_HOCO=1 at 110 Mbp on the card: the final GFA
+    equals phase 6's, every read's hoco arrays equal the native parse's."""
+    import numpy as np
+    import torch
+
+    from oatk_tpu_torch.asm.consensus import _resolve_rl_m1
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+
+    from oatk_tpu_torch.kernels import syncmer as KS
+
+    real_hoco, hoco_ms = KS.hoco_phase, []
+
+    def timed_hoco(seq, lens):
+        box = []
+        hoco_ms.append((tuple(seq.shape), event_ms(lambda: box.append(real_hoco(seq, lens)))))
+        return box[0]
+
+    out = os.path.join(work, "devhoco_110mbp")
+    torch.cuda.reset_peak_memory_stats()
+    syncmer_select.launches = 0
+    KS.hoco_phase = timed_hoco
+    try:
+        with env_set(OATK_TPU_DEVICE_HOCO="1"):
+            res, wall = run_syncasm(full["fa"], K_MAIN, S_MAIN, 30, out, "cuda")
+    finally:
+        KS.hoco_phase = real_hoco
+    launches = syncmer_select.launches
+    peak = torch.cuda.max_memory_allocated()
+    sha = gfa_summary(out + ".utg.final.gfa")["sha256"]
+    nat, dh = full["read_db"], res.read_db
+    bad = 0
+    for sid, (a, b) in enumerate(zip(nat.reads, dh.reads)):
+        rl = a.ho_rl.astype(np.int64)
+        if (rl == 255).any():
+            rl = _resolve_rl_m1(nat, sid, 0, rl)
+        same = (a.hoco_l == b.hoco_l and np.array_equal(a.hoco_code, b.hoco_code)
+                and np.array_equal(rl, b.ho_rl.astype(np.int64)) and np.array_equal(a.is_n, b.is_n))
+        bad += not same
+    same_gfa = sha == full["sha256"]
+    log(f"[devhoco] 110 Mbp: wall {wall:.3f} s, {stage_ms(res.timings or {}, 'load', 'collect_db')} "
+        f"(native host hoco, phase 6: {stage_ms(full['timings'], 'load', 'collect_db')})")
+    log(f"[devhoco] bytes uploaded {dh.upload_bytes} B; max_memory_allocated={peak} B; "
+        f"syncmer_select launches={launches}")
+    log("[devhoco] hoco_phase per chunk (CUDA events): " + "; ".join(
+        f"{b}x{n} {ms:.3f} ms" for (b, n), ms in hoco_ms))
+    log(f"[devhoco] reads {dh.n} (native {nat.n}); reads whose hoco codes, run lengths or "
+        f"N flags differ: {bad}; .utg.final.gfa equals phase 6's: {same_gfa}")
+    ok = same_gfa and bad == 0 and dh.n == nat.n and launches > 0
+    return dict(ok=ok, launches=launches)
+
+
+def write_mixed(src: str, dst: str) -> int:
+    """The reads of ``src`` (single-line FASTA) with every other record
+    written as FASTQ."""
+    n = 0
+    with open(src) as f, open(dst, "w") as g:
+        lines = f.read().split("\n")
+        for i in range(0, len(lines) - 1, 2):
+            name, seq = lines[i][1:], lines[i + 1]
+            if n % 2:
+                g.write(f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n")
+            else:
+                g.write(f">{name}\n{seq}\n")
+            n += 1
+    return n
+
+
+def phase_mixed(work: str, parity: dict) -> dict:
+    """A mixed FASTA/FASTQ file on the card and the CPU: the native
+    loader returns None, the Python reader's route extracts, GFAs equal."""
+    from oatk_tpu_torch.asm import pipeline as P
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+
+    p10 = parity["sets"]["10mbp"]
+    fa = os.path.join(work, "set_10mbp_mixed.fa")
+    n = write_mixed(p10["fa"], fa)
+    k, s, c = p10["ksc"]
+    seen = {}
+    real_load, real_extract = P.load_and_extract, P.extract_all_syncmers
+
+    def load(*a, **kw):
+        db = real_load(*a, **kw)
+        seen["loader"] = db
+        return db
+
+    def extract(*a, **kw):
+        n0 = syncmer_select.launches
+        db = real_extract(*a, **kw)
+        seen["reader_launches"] = syncmer_select.launches - n0
+        return db
+
+    P.load_and_extract, P.extract_all_syncmers = load, extract
+    outs, ok, launches = {}, True, 0
+    try:
+        for dev in ("cuda", "cpu"):
+            seen.clear()
+            syncmer_select.launches = 0
+            outs[dev] = os.path.join(work, f"mixed_{dev}")
+            _res, wall = run_syncasm(fa, k, s, c, outs[dev], dev)
+            ok &= "loader" in seen and seen["loader"] is None and "reader_launches" in seen
+            if dev == "cuda":
+                launches = seen.get("reader_launches", 0)
+            log(f"[mixed] {n} records, every other FASTQ, --device {dev}: wall {wall:.3f} s; "
+                f"native loader returned None: {'loader' in seen and seen['loader'] is None}; "
+                f"Python reader ran: {'reader_launches' in seen}")
+    finally:
+        P.load_and_extract, P.extract_all_syncmers = real_load, real_extract
+    ok &= same_gfas("mixed", outs["cuda"], outs["cpu"])
+    log(f"[mixed] card run: syncmer_select launches in the Python reader's route={launches}")
+    ok &= launches > 0
+    return dict(ok=ok, launches=launches)
+
+
+CONSENSUS_STAGES = ("utg_gfa", "unzip_consensus", "final_gfa")
+
+
+def phase_device_consensus(work: str, full: dict) -> dict:
+    """OATK_TPU_DEVICE_CONSENSUS=1 at 110 Mbp on the card: the final GFA
+    equals phase 6's exactly."""
+    from oatk_tpu_torch.asm.consensus import _runlen_reps_device
+
+    import numpy as np
+
+    from oatk_tpu_torch.asm import consensus as CS
+
+    per_call = []
+
+    def timed_reps(rl_stack, m_seq, device):
+        t0 = time.perf_counter()
+        reps = _runlen_reps_device(rl_stack, m_seq, device)  # ends in a read-back
+        t1 = time.perf_counter()
+        host = 1 + np.floor(rl_stack[:m_seq].sum(0) / m_seq + 0.5).astype(np.int64)
+        per_call.append((t1 - t0, time.perf_counter() - t1, rl_stack.shape, np.array_equal(reps, host)))
+        return reps
+
+    timed_reps.calls = 0  # the real function counts its calls under its own name
+    out = os.path.join(work, "devcons_110mbp")
+    CS._runlen_reps_device = timed_reps
+    try:
+        with env_set(OATK_TPU_DEVICE_CONSENSUS="1"):
+            res, wall = run_syncasm(full["fa"], K_MAIN, S_MAIN, 30, out, "cuda")
+    finally:
+        CS._runlen_reps_device = _runlen_reps_device
+    calls = len(per_call)
+    sha = gfa_summary(out + ".utg.final.gfa")["sha256"]
+    same = sha == full["sha256"]
+    log(f"[devcons] 110 Mbp: wall {wall:.3f} s; device consensus calls={calls}; "
+        f".utg.final.gfa equals phase 6's: {same}")
+    log(f"[devcons] consensus stages, device {stage_ms(res.timings or {}, *CONSENSUS_STAGES)}; "
+        f"host (phase 6) {stage_ms(full['timings'], *CONSENSUS_STAGES)}")
+    med = lambda v: sorted(v)[len(v) // 2] * 1000 if v else float("nan")  # noqa: E731
+    rows = sorted(sh[0] for _d, _h, sh, _e in per_call)
+    n_bad = sum(not e for *_x, e in per_call)
+    log(f"[devcons] per call (host clock, median of {len(per_call)}): device reduction with its "
+        f"upload and read-back {med([c[0] for c in per_call]):.4f} ms, host numpy on the "
+        f"same rows {med([c[1] for c in per_call]):.4f} ms (calls that differ: {n_bad}); "
+        f"rows per call median {rows[len(rows) // 2] if rows else 0}, max {rows[-1] if rows else 0}")
+    return dict(ok=same and calls > 0 and n_bad == 0)
+
+
+def phase_device_em(work: str, full: dict) -> dict:
+    """OATK_TPU_DEVICE_EM=1 at 110 Mbp on the card: every EM call held
+    against the host loop on the same inputs (1e-9, iterations at most 2
+    apart); the final GFA compared with phase 6's (reported only)."""
+    import numpy as np
+
+    from oatk_tpu_torch.asm import coverage as C
+
+    real = C._em_device_run
+    calls = []
+
+    def checked(avg, u_flat, bid, nm_b, nlen, n_vtx, device):
+        host = np.array(avg, np.float64)
+        t0 = time.perf_counter()
+        it_host = C._em_host_run(host, u_flat, bid, nm_b, nlen, n_vtx)
+        t1 = time.perf_counter()
+        dev, it = real(avg, u_flat, bid, nm_b, nlen, n_vtx, device)
+        ms = (time.perf_counter() - t1) * 1000
+        err = float((np.abs(dev - host) / np.maximum(1.0, np.abs(host))).max()) if n_vtx else 0.0
+        calls.append((n_vtx, len(u_flat), it, it_host, err, ms, (t1 - t0) * 1000))
+        return dev, it
+
+    checked.calls = 0  # the real function counts its calls under its own name
+    out = os.path.join(work, "devem_110mbp")
+    C._em_device_run = checked
+    try:
+        with env_set(OATK_TPU_DEVICE_EM="1"):
+            res, wall = run_syncasm(full["fa"], K_MAIN, S_MAIN, 30, out, "cuda")
+    finally:
+        C._em_device_run = real
+    ok = bool(calls)
+    for i, (n_vtx, n_mem, it, it_host, err, ms, host_ms) in enumerate(calls):
+        good = err <= 1e-9 and abs(it - it_host) <= 2
+        ok &= good
+        log(f"[devem] EM call {i}: {n_vtx} unitigs, {n_mem} block members; iterations card {it} "
+            f"host {it_host}; max |dev-host|/max(1,|host|) = {err:.3e}; card {ms:.3f} ms, "
+            f"host loop {host_ms:.3f} ms (host clock); ok={good}")
+    with open(out + ".utg.final.gfa", "rb") as f:
+        got = f.read().split(b"\n")
+    ref_path = os.path.join(work, "full_110mbp.utg.final.gfa")
+    with open(ref_path, "rb") as f:
+        ref = f.read().split(b"\n")
+    sl = lambda ls: [ln for ln in ls if ln[:2] in (b"S\t", b"L\t")]  # noqa: E731
+    a, b = sl(got), sl(ref)
+    n_diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+    log(f"[devem] 110 Mbp: wall {wall:.3f} s; {stage_ms(res.timings or {}, 'unzip_cov', 'final_cov')} "
+        f"(host, phase 6: {stage_ms(full['timings'], 'unzip_cov', 'final_cov')})")
+    log(f"[devem] .utg.final.gfa equals phase 6's: {got == ref}; S/L lines that differ: {n_diff}")
+    return dict(ok=ok)
+
+
+def phase_cpu_flag(work: str, parity: dict) -> dict:
+    """``syncasm --cpu`` (host oracle extraction) through the CLI at
+    1.2 Mbp with ``--device cuda``: GFAs equal phase 5's card GFAs."""
+    from oatk_tpu_torch.cli.syncasm import main as syncasm_main
+
+    p = parity["sets"]["1p2mbp"]
+    k, s, c = p["ksc"]
+    out = os.path.join(work, "cpuflag_1p2mbp")
+    r = run_cli(syncasm_main, [p["fa"], "-k", str(k), "-s", str(s), "-c", str(c), "--cpu",
+                               "--device", "cuda", "-o", out])
+    if r["rc"] != 0:
+        return dict(ok=False)
+    ok = True
+    for suf in OATK_SUFFIXES:
+        sha = gfa_summary(out + suf)["sha256"]
+        same = sha == p["sha"][suf]
+        ok &= same
+        log(f"[cpuflag] {suf}: equals phase 5's card GFA: {same} (sha256 {sha[:16]})")
+    log(f"[cpuflag] --cpu --device cuda at 1.2 Mbp: rc={r['rc']} wall {r['wall']:.3f} s; {r['stages']}")
+    return dict(ok=ok)
+
+
 def build_kernels(mods: dict) -> None:
     """Build every kernel from the checkout's sources, one nvcc per
     source, all started together; print each build's seconds and the
@@ -705,11 +1090,28 @@ def main() -> int:
     ok &= kern["ok"]
     wf = phase_wf("cuda")
     ok &= wf["ok"]
-    ok &= phase_parity(WORK)
+    parity = phase_parity(WORK)
+    ok &= parity["ok"]
     full = phase_full(WORK)
     ok &= full["ok"]
     oatk = phase_oatk(WORK, full["fa"], full["n_bp"], full["sha256"])
     ok &= oatk["ok"]
+    routes = {}
+    for name, fn in (
+        ("capped", lambda: phase_capped(WORK, full["fa"], full["read_db"].n)),
+        ("host_count", lambda: phase_host_count(WORK, full, parity)),
+        ("device_hoco", lambda: phase_device_hoco(WORK, full)),
+        ("python_reader", lambda: phase_mixed(WORK, parity)),
+        ("device_consensus", lambda: phase_device_consensus(WORK, full)),
+        ("device_em", lambda: phase_device_em(WORK, full)),
+        ("cpu_flag", lambda: phase_cpu_flag(WORK, parity)),
+    ):
+        t0 = time.perf_counter()
+        r = fn()
+        log(f"[phase] {name}: ok={r['ok']} in {time.perf_counter() - t0:.3f} s")
+        ok &= r["ok"]
+        if "launches" in r:
+            routes[name] = r["launches"]
 
     kernels = {"kernels": [{
         "name": "syncmer_select",
@@ -717,6 +1119,7 @@ def main() -> int:
         "source": "oatk_tpu_torch/csrc/syncmer_select.cu",
         "replaces": "oatk_tpu/kernels/syncmer_pallas.py:401",
         "launches": full["launches"],
+        "launches_by_route": routes,
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],

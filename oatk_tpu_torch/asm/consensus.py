@@ -257,25 +257,45 @@ def _lround(x: float) -> int:
     return int(np.floor(x + 0.5)) if x >= 0 else -int(np.floor(-x + 0.5))
 
 
-def _refuse_device_consensus() -> None:
-    """OATK_TPU_DEVICE_CONSENSUS (the opt-in device run-length
-    consensus of the JAX package) is not ported yet: refuse it instead
-    of silently running the host reduction."""
+def _device_consensus_on() -> bool:
+    """OATK_TPU_DEVICE_CONSENSUS routes the run-length consensus math
+    through the device reduction.  Resolved at the scg_consensus stage
+    entry (which disables the batched native emitter so the flag is
+    authoritative); the per-syncmer calls only re-read it on the
+    non-batched path, where Python loop costs dominate."""
     import os
 
-    if os.environ.get("OATK_TPU_DEVICE_CONSENSUS"):
-        raise NotImplementedError(
-            "OATK_TPU_DEVICE_CONSENSUS: device consensus is not ported to "
-            "oatk_tpu_torch yet"
-        )
+    return bool(os.environ.get("OATK_TPU_DEVICE_CONSENSUS"))
+
+
+def _runlen_reps_device(rl_stack: np.ndarray, m_seq: int, device) -> np.ndarray:
+    """Run-length consensus repeats on ``device``: 1 + lround(mean) over
+    the per-read run-length rows (reference syncasm.c:994 lround
+    semantics).  One upload and one read-back per call.
+
+    Bit-exact by construction: the cross-read sum is an int64 sum (order
+    independent), and the single rounding division is elementwise in
+    float64, as on the host."""
+    import torch
+
+    rl = torch.from_numpy(np.ascontiguousarray(rl_stack[:m_seq], np.int64)).to(device)
+    tot = rl.sum(0).to(torch.float64)
+    reps = 1 + torch.floor(tot / rl.shape[0] + 0.5).to(torch.int64)
+    _runlen_reps_device.calls += 1
+    return reps.cpu().numpy()
+
+
+_runlen_reps_device.calls = 0
 
 
 def syncmer_consensus(
     read_db: ReadDB, scm_db: SyncmerDB, s: int, rev: int, beg: int, out: list, hoco_seq: bool,
-    flats: _Flats | None = None,
+    flats: _Flats | None = None, device="cpu",
 ) -> int:
     """Append the consensus of syncmer ``s`` starting at offset ``beg``
-    (may be negative -> 'N' fill) to ``out``; returns emitted length."""
+    (may be negative -> 'N' fill) to ``out``; returns emitted length.
+    Under OATK_TPU_DEVICE_CONSENSUS the run-length reduction runs on
+    ``device``."""
     w = read_db.k
     assert beg < w
     bl = 0
@@ -286,6 +306,9 @@ def syncmer_consensus(
     l = w - beg
     bl += l
 
+    dev_rl = not hoco_seq and _device_consensus_on()
+    if dev_rl:
+        flats = None  # run-length reduction on device via the Python gather
     if flats is not None:
         from .. import native
 
@@ -317,6 +340,7 @@ def syncmer_consensus(
     base_seq = None
     tot_rl = None
     m_seq = 0
+    dev_rows: list | None = [] if dev_rl else None
     reads = read_db.reads
     for sid, idx in zip(sids, idxs):
         rd = reads[sid]
@@ -340,7 +364,10 @@ def syncmer_consensus(
             rl = _resolve_rl_m1(read_db, sid, p, rl)
         if r:
             rl = rl[::-1]
-        tot_rl += rl
+        if dev_rows is not None:
+            dev_rows.append(rl)
+        else:
+            tot_rl += rl
         m_seq += 1
     if base_seq is None:
         out.append(b"N" * l)
@@ -353,7 +380,10 @@ def syncmer_consensus(
     bl_extra = 0
     # vectorized 1 + lround(t/m_seq): run-length totals are non-negative,
     # so lround == floor(x + 0.5) (C lround half-away-from-zero)
-    reps = 1 + np.floor(tot_rl / m_seq + 0.5).astype(np.int64)
+    if dev_rows is not None:
+        reps = _runlen_reps_device(np.stack(dev_rows), m_seq, device)
+    else:
+        reps = 1 + np.floor(tot_rl / m_seq + 0.5).astype(np.int64)
     bl_extra = int(reps.sum()) - l
     out.append(_NT[np.repeat(base_seq, reps)].tobytes())
     return bl + bl_extra
@@ -361,15 +391,16 @@ def syncmer_consensus(
 
 def unitig_consensus(
     read_db: ReadDB, scm_db: SyncmerDB, v: np.ndarray, out: list, hoco_seq: bool,
-    flats: _Flats | None = None,
+    flats: _Flats | None = None, device="cpu",
 ) -> int:
     """Stitch syncmer consensi along a unitig by overlap offsets."""
     n = len(v)
     if n == 0:
         return 0
     w = read_db.k
-    if flats is not None:
-        # native whole-unitig emitter
+    if flats is not None and (hoco_seq or not _device_consensus_on()):
+        # native whole-unitig emitter, unless the device run-length
+        # opt-in is on (its math lives in syncmer_consensus below)
         from .. import native
 
         vv = np.ascontiguousarray(v, np.uint64)
@@ -401,7 +432,7 @@ def unitig_consensus(
         beg_pos = int(pos[i])
         l += syncmer_consensus(
             read_db, scm_db, int(v[i]) >> 1, int(v[i]) & 1, end_pos - beg_pos, out, hoco_seq,
-            flats,
+            flats, device,
         )
         end_pos = beg_pos + w
         i += 1
@@ -481,16 +512,18 @@ def _quantile_sorted(a: np.ndarray, q: float) -> float:
     return float(a[i] + (a[i + 1] - a[i]) * frac)
 
 
-def scg_consensus(read_db: ReadDB, scg: Scg, hoco_seq: bool, save_seq: bool, fo=None):
+def scg_consensus(
+    read_db: ReadDB, scg: Scg, hoco_seq: bool, save_seq: bool, fo=None, device="cpu"
+):
     """Compute unitig consensus sequences, lengths, coverages and arc
     overlap lengths; optionally emit GFA.
 
     With the native library, all vertices (and all arcs) are processed
     in single batched C calls -- per-call ctypes dispatch dominated
-    large unfiltered graphs otherwise."""
+    large unfiltered graphs otherwise.  Under OATK_TPU_DEVICE_CONSENSUS
+    the run-length reduction of every syncmer runs on ``device``."""
     from ..utils import stage_timer
 
-    _refuse_device_consensus()
     _tm = stage_timer("scg_consensus")
 
     def _t(name):
@@ -508,6 +541,11 @@ def scg_consensus(read_db: ReadDB, scg: Scg, hoco_seq: bool, save_seq: bool, fo=
 
     n_vtx = utg.n_vtx
     batched = flats is not None and n_vtx > 0
+    if batched and not hoco_seq and _device_consensus_on():
+        # the opt-in device run-length path lives in syncmer_consensus;
+        # the batched native emitter would bypass it entirely, so the
+        # flag forces the per-unitig route
+        batched = False
     if batched:
         from .. import native
 
@@ -653,7 +691,7 @@ def scg_consensus(read_db: ReadDB, scg: Scg, hoco_seq: bool, save_seq: bool, fo=
             if utg.vtx_del[i]:
                 continue
             chunks: list[bytes] = []
-            l = unitig_consensus(read_db, scm_db, utg.vtx_a[i], chunks, hoco_seq, flats)
+            l = unitig_consensus(read_db, scm_db, utg.vtx_a[i], chunks, hoco_seq, flats, device)
             seq = b"".join(chunks).decode()
             assert len(seq) == l
             cov = utg.vtx_cov[i] if utg.vtx_cov[i] else _utg_avg_cov(scg, i)
@@ -725,7 +763,7 @@ def scg_consensus(read_db: ReadDB, scg: Scg, hoco_seq: bool, save_seq: bool, fo=
                 a = utg.vtx_a[v >> 1]
                 sub = a[:ln] if (v & 1) else a[len(a) - ln :]
                 chunks = []
-                l = unitig_consensus(read_db, scm_db, sub, chunks, hoco_seq, flats)
+                l = unitig_consensus(read_db, scm_db, sub, chunks, hoco_seq, flats, device)
             else:
                 a = utg.vtx_a[v >> 1]
                 z = v & 1
@@ -737,7 +775,7 @@ def scg_consensus(read_db: ReadDB, scg: Scg, hoco_seq: bool, save_seq: bool, fo=
                 if l < w:
                     chunks = []
                     l = syncmer_consensus(
-                        read_db, scm_db, vv >> 1, vv & 1, l, chunks, hoco_seq, flats
+                        read_db, scm_db, vv >> 1, vv & 1, l, chunks, hoco_seq, flats, device
                     )
                 else:
                     l = 0

@@ -9,6 +9,8 @@ parallel-link refinement.
 """
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from ..utils import log_info, log_warn
@@ -21,16 +23,89 @@ EM_MAX_ITER = 1000
 DBL_EPSILON = 2.220446049250313e-16
 
 
-def _refuse_device_em() -> None:
-    """OATK_TPU_DEVICE_EM (the JAX package's opt-in device coverage EM)
-    is not ported yet: refuse it instead of silently running the host
-    loop."""
-    import os
+def _em_host_run(avg, u_flat, bid, nm_b, nlen, n_vtx: int) -> int:
+    """Coverage EM (round 2) on the host, updating ``avg`` in place;
+    returns the number of iterations.  np.bincount accumulates in the
+    reference's sequential order, so this loop is the byte-parity
+    default."""
+    nb_total = len(nm_b)
+    it = 0
+    while it < EM_MAX_ITER:
+        it += 1
+        if nb_total:
+            au = avg[u_flat]
+            tot_b = np.bincount(bid, weights=au, minlength=nb_total)
+            tb = tot_b[bid]
+            ok = tb != 0.0
+            w = np.zeros(len(u_flat))
+            w[ok] = au[ok] / tb[ok] * nm_b[bid[ok]]
+            covs = np.bincount(u_flat, weights=w, minlength=n_vtx)
+        else:
+            covs = np.zeros(n_vtx)
+        diff = 0.0
+        for i in range(n_vtx):
+            c = covs[i] / nlen[i]
+            diff += abs(c - avg[i])
+            avg[i] = c
+        if diff < DBL_EPSILON:
+            break
+    return it
 
-    if os.environ.get("OATK_TPU_DEVICE_EM"):
-        raise NotImplementedError(
-            "OATK_TPU_DEVICE_EM: device coverage EM is not ported to "
-            "oatk_tpu_torch yet"
+
+def _em_device_run(avg, u_flat, bid, nm_b, nlen, n_vtx: int, device):
+    """Coverage EM (round 2) on ``device`` (port of the JAX package's
+    ``lax.while_loop`` over segment sums): float64 ``index_add_`` segment
+    sums, the same stopping rule (``it < EM_MAX_ITER and diff >=
+    DBL_EPSILON``) tested before every iteration, one read-back of
+    ``diff`` per iteration.  Returns (coverage vector as numpy, number of
+    iterations).
+
+    Opt-in via OATK_TPU_DEVICE_EM: CUDA's float64 ``index_add_`` sums
+    with atomics, in no fixed order, so the result can differ from the
+    host loop's sequential order in the last bits."""
+    import torch
+
+    f64 = torch.float64
+    avg_t = torch.as_tensor(avg, dtype=f64).to(device)
+    u = torch.as_tensor(u_flat, dtype=torch.int64).to(device)
+    b = torch.as_tensor(bid, dtype=torch.int64).to(device)
+    nmb = torch.as_tensor(nm_b, dtype=f64).to(device)[b]
+    nl = torch.as_tensor(nlen, dtype=f64).to(device)
+    nb = len(nm_b)
+    it, diff = 0, float("inf")
+    while it < EM_MAX_ITER and diff >= DBL_EPSILON:
+        au = avg_t[u]
+        tb = torch.zeros(nb, dtype=f64, device=avg_t.device).index_add_(0, b, au)[b]
+        nz = tb != 0.0
+        w = torch.where(nz, au / torch.where(nz, tb, 1.0) * nmb, 0.0)
+        new = torch.zeros(n_vtx, dtype=f64, device=avg_t.device).index_add_(0, u, w) / nl
+        diff = float((new - avg_t).abs().sum())
+        avg_t = new
+        it += 1
+    _em_device_run.calls += 1
+    return avg_t.cpu().numpy(), it
+
+
+_em_device_run.calls = 0
+_device_em_warned = False
+
+
+def _warn_device_em_once():
+    """OATK_TPU_DEVICE_EM is EXPERIMENTAL and outside the byte-parity
+    contract: no device reduction can reproduce the reference's
+    sequential float accumulation (reference syncasm.c:1643-2261) by
+    construction -- float addition is non-associative and the device
+    sums in its own order, so coverage values (and thus SC/KC tags) may
+    differ in the last bits on some inputs.  The parity-tested host loop
+    is the default."""
+    global _device_em_warned
+    if not _device_em_warned:
+        _device_em_warned = True
+        log_warn(
+            "OATK_TPU_DEVICE_EM is experimental: device float reduction "
+            "order is not guaranteed to reproduce the reference "
+            "byte-for-byte",
+            func="scg_ra_utg_coverage",
         )
 
 
@@ -171,8 +246,11 @@ def _make_ma_blocks(scg: Scg, read, alns: list[ReadAln]):
     return n_match, u_match
 
 
-def scg_ra_utg_coverage(scg: Scg, read_db: ReadDB, ra_db: list[ReadAln], verbose: int = 0):
-    _refuse_device_em()
+def scg_ra_utg_coverage(
+    scg: Scg, read_db: ReadDB, ra_db: list[ReadAln], verbose: int = 0, device="cpu"
+):
+    """Unitig coverage from the read alignments; the EM round runs on
+    ``device`` under OATK_TPU_DEVICE_EM."""
     if not ra_db:
         log_warn("no read alignment, unitig coverage estimation skipped")
         return
@@ -347,24 +425,11 @@ def scg_ra_utg_coverage(scg: Scg, read_db: ReadDB, ra_db: list[ReadAln], verbose
     )
 
     # round 2: EM over multi-alignment blocks
-    for _ in range(EM_MAX_ITER):
-        if nb_total:
-            au = avg[u_flat]
-            tot_b = np.bincount(bid, weights=au, minlength=nb_total)
-            tb = tot_b[bid]
-            ok = tb != 0.0
-            w = np.zeros(len(u_flat))
-            w[ok] = au[ok] / tb[ok] * nm_b[bid[ok]]
-            covs = np.bincount(u_flat, weights=w, minlength=n_vtx)
-        else:
-            covs = np.zeros(n_vtx)
-        diff = 0.0
-        for i in range(n_vtx):
-            c = covs[i] / nlen_arr[i]
-            diff += abs(c - avg[i])
-            avg[i] = c
-        if diff < DBL_EPSILON:
-            break
+    if nb_total and os.environ.get("OATK_TPU_DEVICE_EM"):
+        _warn_device_em_once()
+        avg[:] = _em_device_run(avg, u_flat, bid, nm_b, nlen_arr, n_vtx, device)[0]
+    else:
+        _em_host_run(avg, u_flat, bid, nm_b, nlen_arr, n_vtx)
 
     # round 3: redistribute syncmer counts weighted by utg coverage
     # (vectorized: every (unitig, position) holds exactly one syncmer, so

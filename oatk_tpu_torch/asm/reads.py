@@ -1,25 +1,33 @@
-"""Read database and the fused native-parse -> device extraction loader
-(PyTorch port of ``oatk_tpu/asm/reads.py``).
+"""Read database and syncmer extraction (PyTorch port of
+``oatk_tpu/asm/reads.py``).
 
 ``ReadDB`` and the host helpers (segment parse + pack, sparse N
-positions, row bucketing) are carried unchanged.  :func:`load_and_extract`
-is the port of the JAX loader's uncapped pipelined flow with
-device-resident counting: worker threads parse+pack segment i+1 while
-the main thread uploads segment i's blobs, runs the extraction
-(:func:`oatk_tpu_torch.kernels.syncmer.extract_hoco_fused`) and appends
-the keys to the device count buffers.
+positions, row bucketing) are carried unchanged.  Every device route
+selects through the closed-syncmer kernel (:mod:`..kernels.syncmer_select`):
 
-Not ported yet (they raise instead of falling back): the ``-D`` capped
-sequential flow, the host-count flow (``extract_all_syncmers``) and the
-device-hoco knob (``OATK_TPU_DEVICE_HOCO``).
+- :func:`load_and_extract`, the fused native-parse loader.  Uncapped,
+  worker threads parse+pack segment i+1 while the main thread uploads
+  segment i's blobs and extracts them
+  (:func:`oatk_tpu_torch.kernels.syncmer.extract_hoco_fused`); the keys
+  go to the device count buffers, or, with ``device_count=False``, each
+  chunk's selected rows come back to the host for the host sort.  Under
+  ``-D`` (``max_data``) one sequential flow parses each whole file, caps
+  it and counts on the host.
+- :func:`extract_all_syncmers`, the Python reader's route (host hoco +
+  2-bit pack into the loader's blob layout, or raw ASCII with the hoco
+  phase on the device under ``OATK_TPU_DEVICE_HOCO``), host counting;
+  with ``use_device=False`` the sequential host oracle (``--cpu``).
 """
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..kernels.oracle import ReadSyncmers
+from ..io.fastx import SeqRecord
+from ..kernels.oracle import ReadSyncmers, hoco_compress_np, pack_hoco, syncmers_of_read_oracle
+from ..utils import log_info
 
 
 @dataclass
@@ -56,9 +64,13 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _timeit_enabled() -> bool:
-    import os
-
     return bool(os.environ.get("OATK_TPU_TIMEIT"))
+
+
+def _device_hoco_on() -> bool:
+    """OATK_TPU_DEVICE_HOCO: the hoco phase runs on the device from raw
+    ASCII (the Python reader's route)."""
+    return os.environ.get("OATK_TPU_DEVICE_HOCO", "0") not in ("", "0")
 
 
 # bytes per pipeline segment of the fused loader (tests shrink this to
@@ -92,6 +104,21 @@ def _pad_rows(n: int, bsz: int) -> int:
     return min(max(64, _round_up(n, 64)), bsz)
 
 
+def _chunks_of(lengths, w: int, s: int, batch_bases: int):
+    """(chunk read indices, B, Lp, max_out) over reads bucketed by padded
+    length, each bucket cut into chunks of about ``batch_bases``."""
+    buckets: dict[int, list[int]] = {}
+    for i, n in enumerate(lengths):
+        buckets.setdefault(_bucket_len(max(int(n), w + 4)), []).append(i)
+    for Lp, idxs in sorted(buckets.items()):
+        bsz = max(1, batch_bases // Lp)
+        for start in range(0, len(idxs), bsz):
+            chunk = idxs[start : start + bsz]
+            B = _pad_rows(len(chunk), bsz)
+            max_out = _round_up(max(1024, int(B * Lp / _sel_divisor(w, s))), 1024)
+            yield chunk, B, Lp, max_out
+
+
 _false_buf = np.zeros(1 << 14, bool)
 
 
@@ -121,6 +148,77 @@ def _read_isn_views(isn_pos: np.ndarray, offs: np.ndarray, n_reads: int):
     return out
 
 
+def _unpack_packed(pk: np.ndarray, n_sel: int, Lp: int):
+    """Decode the extraction's [3, >=n_sel] int64 result: row0 =
+    flat_idx<<1|z, row1 = smer payload, row2 = bitcast Murmur hash."""
+    flat = pk[0, :n_sel]
+    sel_z = (flat & 1).astype(np.int32)
+    fi = flat >> 1
+    sel_b = (fi // Lp).astype(np.int32)
+    sel_p = (fi % Lp).astype(np.int32)
+    sel_smer = pk[1, :n_sel].astype(np.uint64)
+    sel_kh = pk[2, :n_sel].view(np.uint64) if pk.shape[0] > 2 else None
+    return sel_b, sel_p, sel_z, sel_smer, sel_kh
+
+
+def _host_rows(packed, n_sel: int, B: int, Lp: int):
+    """Fetch one chunk's n_sel selected rows for host counting: returns
+    (row cuts [B+1], m_pos uint32, s_mer uint64, k_mer uint64), the
+    per-read fields being [cuts[b], cuts[b+1]) slices."""
+    pk = packed[:, :n_sel].cpu().numpy()
+    sel_b, sel_p, sel_z, sel_smer, sel_kh = _unpack_packed(pk, n_sel, Lp)
+    cuts = np.searchsorted(sel_b, np.arange(B + 1))
+    mpos = (sel_p.astype(np.uint32) << 1) | sel_z.astype(np.uint32)
+    return cuts, mpos, sel_smer, sel_kh.copy()
+
+
+def _set_rows(reads: list, chunk, rows, keep: int) -> None:
+    """Give the reads of one chunk their syncmer arrays (reads at or
+    past ``keep``, the -D cap, are skipped)."""
+    cuts, mpos, smer, kmer = rows
+    for bi, ri in enumerate(chunk):
+        if ri >= keep:
+            continue
+        lo, hi = cuts[bi], cuts[bi + 1]
+        r = reads[ri]
+        r.m_pos, r.s_mer, r.k_mer = mpos[lo:hi], smer[lo:hi], kmer[lo:hi]
+
+
+def _pack_chunks(res, n_reads: int, w: int, s: int, batch_bases: int):
+    """2-bit pack the first ``n_reads`` reads of a parse result into
+    upload blobs: [(chunk_read_idxs, B, Lp, max_out, n_cap, blob)]."""
+    from .. import native
+
+    offs, codes, isn_idx = res[2], res[3], res[5]
+    chunks = []
+    for chunk, B, Lp, max_out in _chunks_of(np.diff(offs[: n_reads + 1]), w, s, batch_bases):
+        st = offs[chunk]
+        en = offs[np.asarray(chunk) + 1]
+        # sparse ambiguous positions straight from the parser (parse-local
+        # coordinates, same as offs)
+        n_pos = _chunk_n_positions(isn_idx, st, en, Lp)
+        n_cap = 0 if not len(n_pos) else _round_up(max(64, len(n_pos)), 1024)
+        # one blob = one upload; the packed grid / lengths / N
+        # positions are written straight into their blob slices
+        blob, packed, hl, n_arr = _new_blob(B, Lp, n_cap)
+        native.pack_rows_gather(codes, st, en, Lp // 4, out=packed)
+        hl[: len(chunk)] = (en - st).astype(np.int32)
+        n_arr[: len(n_pos)] = n_pos
+        chunks.append((chunk, B, Lp, max_out, n_cap, blob))
+    return chunks
+
+
+def _new_blob(B: int, Lp: int, n_cap: int):
+    """Zeroed upload blob [packed B x Lp/4 | hoco lengths i32[B] | N
+    positions i32[n_cap]] and its three views (unused N slots hold the
+    drop sentinel B*Lp)."""
+    pk_b = B * (Lp // 4)
+    blob = np.zeros(pk_b + 4 * B + 4 * n_cap, np.uint8)
+    n_arr = blob[pk_b + 4 * B :].view(np.int32)
+    n_arr[:] = B * Lp
+    return blob, blob[:pk_b].reshape(B, Lp // 4), blob[pk_b : pk_b + 4 * B].view(np.int32), n_arr
+
+
 def _parse_pack_segment(
     data: bytes, c0: int, c1: int, w: int, s: int, batch_bases: int, out3=None,
     tacc: list | None = None,
@@ -143,40 +241,7 @@ def _parse_pack_segment(
     _t_parse = _time.perf_counter() - _t0
     if res is None:
         return None
-    names, rawlen, offs, codes, rl, isn_idx = res[:6]
-    n_reads = len(names)
-    hoco_l = (offs[1:] - offs[:-1]).astype(np.int64)
-
-    buckets: dict[int, list[int]] = {}
-    for i in range(n_reads):
-        L = max(int(hoco_l[i]), w + 4)
-        buckets.setdefault(_bucket_len(L), []).append(i)
-
-    chunks = []
-    # sparse ambiguous positions straight from the parser (parse-local
-    # coordinates, same as offs)
-    for Lp, idxs in sorted(buckets.items()):
-        bsz = max(1, batch_bases // Lp)
-        for start in range(0, len(idxs), bsz):
-            chunk = idxs[start : start + bsz]
-            B = _pad_rows(len(chunk), bsz)
-            max_out = _round_up(max(1024, int(B * Lp / _sel_divisor(w, s))), 1024)
-            st = offs[chunk]
-            en = offs[np.asarray(chunk) + 1]
-            n_pos = _chunk_n_positions(isn_idx, st, en, Lp)
-            n_cap = 0 if not len(n_pos) else _round_up(max(64, len(n_pos)), 1024)
-            # one blob = one upload; the packed grid / lengths / N
-            # positions are written straight into their blob slices
-            pk_b = B * (Lp // 4)
-            blob = np.zeros(pk_b + 4 * B + 4 * n_cap, np.uint8)
-            packed = blob[:pk_b].reshape(B, Lp // 4)
-            native.pack_rows_gather(codes, st, en, Lp // 4, out=packed)
-            hl = blob[pk_b : pk_b + 4 * B].view(np.int32)
-            hl[: len(chunk)] = (en - st).astype(np.int32)
-            n_arr = blob[pk_b + 4 * B :].view(np.int32)
-            n_arr[:] = B * Lp
-            n_arr[: len(n_pos)] = n_pos
-            chunks.append((chunk, B, Lp, max_out, n_cap, blob))
+    chunks = _pack_chunks(res, len(res[0]), w, s, batch_bases)
     if tacc is not None:
         tacc.append((_t_parse, _time.perf_counter() - _t0 - _t_parse))
     return res, chunks
@@ -215,6 +280,108 @@ def extract_chunk(blob: np.ndarray, B, Lp, n_cap, w, s, max_out, device):
         max_out = _round_up(n_sel + 1024, 1024)
 
 
+def extract_all_syncmers(
+    records: list[SeqRecord],
+    w: int,
+    s: int,
+    use_device: bool = True,
+    batch_bases: int = 32 << 20,
+    device="cuda",
+) -> ReadDB:
+    """Syncmer extraction for reads from the Python reader, counted on
+    the host.
+
+    On ``device`` (the JAX package's ``impl="pallas"`` route): host hoco
+    (``hoco_compress_np``), 2-bit pack into the loader's blob layout,
+    :func:`extract_chunk`, then the per-read split of the fetched rows;
+    under OATK_TPU_DEVICE_HOCO the hoco phase runs on the device from raw
+    ASCII instead.  ``use_device=False`` runs the sequential host oracle
+    per read (``--cpu``)."""
+    db = ReadDB(k=w, s=s)
+    db.reads = [None] * len(records)  # type: ignore
+
+    if not use_device:
+        for i, rec in enumerate(records):
+            db.reads[i] = syncmers_of_read_oracle(rec.seq, w, s, rec.sid, rec.name)
+        return db
+    if _device_hoco_on():
+        return _extract_device_hoco(db, records, w, s, batch_bases, device)
+
+    # host-side homopolymer compression (needed for consensus/EC anyway);
+    # the device consumes 2-bit packed hoco codes + sparse N positions
+    hoco = [hoco_compress_np(rec.seq) for rec in records]
+    for i, (rec, (code, ho_rl, is_n)) in enumerate(zip(records, hoco)):
+        db.reads[i] = ReadSyncmers(
+            sid=rec.sid, name=rec.name, hoco_l=len(code), hoco_code=code, ho_rl=ho_rl,
+            is_n=is_n, m_pos=None, s_mer=None, k_mer=None,
+        )
+    up = 0
+    for chunk, B, Lp, max_out in _chunks_of([len(h[0]) for h in hoco], w, s, batch_bases):
+        n_pos = np.concatenate(
+            [bi * Lp + np.flatnonzero(hoco[ri][2]) for bi, ri in enumerate(chunk)]
+        )
+        n_cap = 0 if not len(n_pos) else _round_up(max(64, len(n_pos)), 1024)
+        blob, packed, hl, n_arr = _new_blob(B, Lp, n_cap)
+        for bi, ri in enumerate(chunk):
+            code = hoco[ri][0]
+            packed[bi, : (len(code) + 3) // 4] = pack_hoco(code)
+            hl[bi] = len(code)
+        n_arr[: len(n_pos)] = n_pos
+        pk, n_sel, _mo = extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device)
+        _set_rows(db.reads, chunk, _host_rows(pk, n_sel, B, Lp), len(records))
+        up += blob.nbytes
+    db.upload_bytes = up
+    return db
+
+
+def _extract_device_hoco(db, records, w, s, batch_bases, device):
+    """OATK_TPU_DEVICE_HOCO=1 route: upload RAW ASCII reads (1 B/base,
+    bucketed by raw length) and run homopolymer compression on the
+    device (:func:`oatk_tpu_torch.kernels.syncmer.extract_syncmers_ascii`),
+    fetching the hoco arrays back for the host-side DB.  The host skips
+    its hoco+pack pass; the upload carries 4x the bytes of the 2-bit
+    blob and the read-back ~6 B per base more."""
+    import torch
+
+    from ..kernels.syncmer import extract_syncmers_ascii
+
+    up = 0
+    for chunk, B, Lp, max_out in _chunks_of([len(r.seq) for r in records], w, s, batch_bases):
+        seq = np.zeros((B, Lp), dtype=np.uint8)
+        lens = np.zeros(B, dtype=np.int32)
+        for bi, ri in enumerate(chunk):
+            sq = records[ri].seq
+            seq[bi, : len(sq)] = sq
+            lens[bi] = len(sq)
+        seq_d = torch.from_numpy(seq).to(device)
+        lens_d = torch.from_numpy(lens).to(device)
+        up += seq.nbytes + lens.nbytes
+        while True:
+            out = extract_syncmers_ascii(seq_d, lens_d, w, s, max_out, return_hoco=True)
+            n_sel = int(out["packed"][0, max_out])
+            if n_sel <= max_out:
+                break
+            # capacity overflow (pathological density): regrow and redo
+            max_out = _round_up(n_sel + 1024, 1024)
+        hc, hl, rl, isn = (out[k].cpu().numpy() for k in ("hoco_c", "hoco_l", "ho_rl", "is_n"))
+        for bi, ri in enumerate(chunk):
+            n_h = int(hl[bi])
+            db.reads[ri] = ReadSyncmers(
+                sid=records[ri].sid,
+                name=records[ri].name,
+                hoco_l=n_h,
+                hoco_code=hc[bi, :n_h].copy(),
+                ho_rl=rl[bi, :n_h].astype(np.uint32),
+                is_n=isn[bi, :n_h].copy(),
+                m_pos=None,
+                s_mer=None,
+                k_mer=None,
+            )
+        _set_rows(db.reads, chunk, _host_rows(out["packed"], n_sel, B, Lp), len(records))
+    db.upload_bytes = up
+    return db
+
+
 def load_and_extract(
     paths: list[str],
     w: int,
@@ -222,18 +389,26 @@ def load_and_extract(
     max_data: int = 0,
     batch_bases: int = 32 << 20,
     device="cuda",
+    device_count: bool = True,
 ) -> ReadDB | None:
-    """Fused native load + device extraction + device counting.
+    """Fused native load + device extraction.
 
-    Each file splits at record boundaries into ~``_SEG_BYTES`` segments;
-    worker threads parse and pack them while the main thread extracts
-    the previous segment's chunks on ``device`` and appends their keys to
-    a :class:`~oatk_tpu_torch.index.devcount.DevCountState`, which the
-    returned ReadDB carries as ``_devcount`` for ``collect_syncmer_db``.
+    Uncapped, each file splits at record boundaries into ~``_SEG_BYTES``
+    segments; worker threads parse and pack them while the main thread
+    extracts the previous segment's chunks on ``device``.  With
+    ``device_count`` the keys go to a
+    :class:`~oatk_tpu_torch.index.devcount.DevCountState`, which the
+    returned ReadDB carries as ``_devcount`` for ``collect_syncmer_db``;
+    otherwise each chunk's selected rows are fetched and
+    ``collect_syncmer_db`` sorts on the host.
+
+    ``max_data`` (-D) runs the sequential flow: a whole-file parse, the
+    reads up to and including the one whose raw bases reach the cap,
+    host counting, and no further files once the cap is reached.
 
     Returns None when the native parser rejects the input (for example a
-    FASTA file with embedded FASTQ records)."""
-    import os as _os
+    FASTA file with embedded FASTQ records) and under
+    OATK_TPU_DEVICE_HOCO; the caller then takes the Python reader."""
     import time as _time
     from concurrent.futures import ThreadPoolExecutor
 
@@ -241,20 +416,15 @@ def load_and_extract(
     from ..index.devcount import DevCountState
     from ..io.fastx import read_source_bytes
 
-    if max_data:
-        raise NotImplementedError(
-            "-D (the capped sequential loader) is not ported to oatk_tpu_torch yet"
-        )
-    if _os.environ.get("OATK_TPU_DEVICE_HOCO", "0") not in ("", "0"):
-        raise NotImplementedError(
-            "OATK_TPU_DEVICE_HOCO: device hoco is not ported to oatk_tpu_torch yet"
-        )
+    if _device_hoco_on():
+        return None
     if not native.available():
         raise RuntimeError("the native host library (oatk_tpu/native/*.c) failed to build")
 
-    devcount = DevCountState(device)
+    devcount = DevCountState(device) if device_count and not max_data else None
     db = ReadDB(k=w, s=s)
     total_raw = 0
+    up = 0
     sid0 = 0
     code_parts: list[np.ndarray] = []
     rl_parts: list[np.ndarray] = []
@@ -269,11 +439,26 @@ def load_and_extract(
         _tm[key] = _tm.get(key, 0.0) + (t1 - t0)
         return t1
 
-    def assemble(res, sid_base, codes, rl):
-        """ReadSyncmers for one parse unit; the m_pos/s_mer/k_mer views
-        arrive with the devcount finalize (DevCountState.build)."""
+    def extract_rows(chunks, csid0):
+        """Extract one parse unit's chunks; returns the host rows per
+        chunk (host counting) or [] (keys appended to ``devcount``)."""
+        nonlocal up
+        rows, n_occ = [], 0
+        for chunk, B, Lp, max_out, n_cap, blob in chunks:
+            packed, n_sel, max_out = extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device)
+            up += blob.nbytes
+            n_occ += n_sel
+            if devcount is None:
+                rows.append((chunk, _host_rows(packed, n_sel, B, Lp)))
+            else:
+                devcount.append(packed, np.asarray(chunk, np.int64) + csid0, Lp, max_out)
+        return rows, n_occ
+
+    def assemble(res, sid_base, codes, rl, keep, rows):
+        """ReadSyncmers for the first ``keep`` reads of one parse unit.
+        Under device counting the m_pos/s_mer/k_mer views arrive with
+        the devcount finalize (DevCountState.build)."""
         names, _rawlen, offs, _c, _r, isn_pos = res[:6]
-        keep = len(names)
         isn_views = _read_isn_views(isn_pos, offs, keep)
         reads = []
         for ri in range(keep):
@@ -289,24 +474,63 @@ def load_and_extract(
                 s_mer=None,
                 k_mer=None,
             ))
+        for chunk, r in rows:
+            _set_rows(reads, chunk, r, keep)
         return reads
 
-    # pre-size the count buffers across all inputs (expected key lanes
-    # ~ padded-hoco/sel_divisor, ~0.8 x raw bytes / divisor); sizes of
-    # pipes/URLs are unknown and the buffers grow for them instead
-    tot = 0
-    for p in paths:
-        try:
-            sz = _os.path.getsize(p)
-        except (OSError, ValueError):
-            sz = 0
-        tot += int(0.8 * sz / _sel_divisor(w, s)) + (sz // _SEG_BYTES + 2) * 1024
-    devcount.cap_hint = tot
+    if devcount is not None:
+        # pre-size the count buffers across all inputs (expected key lanes
+        # ~ padded-hoco/sel_divisor, ~0.8 x raw bytes / divisor); sizes of
+        # pipes/URLs are unknown and the buffers grow for them instead
+        tot = 0
+        for p in paths:
+            try:
+                sz = os.path.getsize(p)
+            except (OSError, ValueError):
+                sz = 0
+            tot += int(0.8 * sz / _sel_divisor(w, s)) + (sz // _SEG_BYTES + 2) * 1024
+        devcount.cap_hint = tot
 
     for path in paths:
         _t0 = _time.perf_counter()
         data = read_source_bytes(path)
         _acc("read_bytes", _t0)
+
+        if max_data:
+            # ---- sequential flow (-D cap honored mid-file) ----
+            res = native.parse_fastx_hoco_mt(data)
+            _t0 = _acc("parse", _t0)
+            if res is None:
+                return None
+            names, rawlen, offs, codes, rl = res[:5]
+            # the read whose raw bases reach the cap is kept
+            keep = int(np.searchsorted(np.cumsum(rawlen), max_data - total_raw) + 1)
+            keep = min(keep, len(names))
+            total_raw += int(rawlen[:keep].sum())
+            rows, _n_occ = extract_rows(_pack_chunks(res, keep, w, s, batch_bases), sid0)
+            _t0 = _acc("extract", _t0)
+            db.reads.extend(assemble(res, sid0, codes, rl, keep, rows))
+            h_end = int(offs[keep])
+            code_parts.append(codes[:h_end])
+            rl_parts.append(rl[:h_end])
+            off_parts.append(offs[:keep] + off_base)
+            if len(res[6]):
+                sel = res[6] < h_end  # entries of reads beyond the -D cap drop
+                ovf_pos_parts.append(res[6][sel] + off_base)
+                ovf_len_parts.append(res[7][sel])
+            off_base += h_end
+            sid0 += keep
+            _acc("assemble_total", _t0)
+            if total_raw >= max_data:
+                # message as reference syncmer.c:473,539
+                log_info(
+                    f"data limit ({max_data}) reached. Discard the remaining sequences...",
+                    func="sr_read",
+                )
+                break
+            continue
+
+        # ---- pipelined flow ----
         # fixed ~4 MB segments regardless of file size
         n_seg = max(1, len(data) // _SEG_BYTES)
         guard_pool = ThreadPoolExecutor(1)  # mixed-format guard scan
@@ -345,7 +569,7 @@ def load_and_extract(
                 n_occ = 0
                 # key lanes appended during a discarded attempt must be
                 # masked out of the device count buffers
-                att_fill = devcount.n_fill
+                att_fill = devcount.n_fill if devcount is not None else 0
                 seg_sid = sid0
                 n_parse = max(1, min(native.n_threads_default(), 8, len(bounds)))
                 seg_tms: list = []  # (parse_s, pack_s) per segment, worker-side
@@ -366,20 +590,15 @@ def load_and_extract(
                             failed = True
                             continue
                         res, chunks = pr
-                        for chunk, B, Lp, max_out, n_cap, blob in chunks:
-                            packed, n_sel, max_out = extract_chunk(
-                                blob, B, Lp, n_cap, w, s, max_out, devcount.device
-                            )
-                            csids = np.asarray(chunk, np.int64) + seg_sid
-                            devcount.append(packed, csids, Lp, max_out)
-                            n_occ += n_sel
+                        rows, n = extract_rows(chunks, seg_sid)
+                        n_occ += n
                         _acc("extract", _t0)
                         seg_sid += len(res[0])
-                        seg_results.append((res, c0))
+                        seg_results.append((res, c0, rows))
                 if guard_fut is not None and guard_fut.result() >= 0:
                     # rare mixed-format file: the optimistic '\n>' split
                     # was unsafe; drop this attempt and redo verified
-                    if devcount.n_fill > att_fill:
+                    if devcount is not None and devcount.n_fill > att_fill:
                         devcount.invalidate(att_fill, devcount.n_fill - att_fill)
                     continue
                 break
@@ -390,16 +609,18 @@ def load_and_extract(
             _tm["pack_work"] = _tm.get("pack_work", 0.0) + sum(q for _, q in seg_tms)
         if failed:
             return None
-        devcount.n_occ += n_occ
+        if devcount is not None:
+            devcount.n_occ += n_occ
         _t0 = _time.perf_counter()
-        for res, vbase in seg_results:
+        for res, vbase, rows in seg_results:
             names, rawlen, offs = res[0], res[1], res[2]
             keep = len(names)
             # the segment's reads live at [vbase, vbase+h_end) of the
             # whole-file arrays (parse wrote in place)
             h_end = int(offs[keep])
             db.reads.extend(assemble(
-                res, sid0, codes_full[vbase : vbase + h_end], rl_full[vbase : vbase + h_end]
+                res, sid0, codes_full[vbase : vbase + h_end], rl_full[vbase : vbase + h_end],
+                keep, rows,
             ))
             total_raw += int(rawlen.sum())
             off_parts.append(offs[:keep] + (off_base + vbase))
@@ -423,8 +644,9 @@ def load_and_extract(
         db.hoco_off = np.concatenate(
             off_parts + [np.asarray([off_base], np.int64)]
         ).astype(np.int64, copy=False)
-    if devcount.n_fill > 0:
+    if devcount is not None and devcount.n_fill > 0:
         db._devcount = devcount  # consumed by collect_syncmer_db
+    db.upload_bytes = up
     db.load_timings = dict(_tm)
     if _timeit_enabled() and _tm:
         import sys as _sys

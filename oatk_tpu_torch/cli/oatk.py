@@ -79,8 +79,6 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if args.shards:
         raise NotImplementedError("--shards is not ported to oatk_tpu_torch yet")
-    if args.D:
-        raise NotImplementedError("-D (the capped sequential loader) is not ported to oatk_tpu_torch yet")
     from . import pathfinder as pf_cli
 
     if pf_cli.apply_tags(args):

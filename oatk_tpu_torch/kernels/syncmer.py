@@ -7,6 +7,9 @@ runs): decode the blob, mark the Ns, run the closed-syncmer selection
 kernel (:mod:`.syncmer_select`), compact the selected positions, then
 per selected position the boundary s-mer payload and strand, the 2-bit
 window pack, the reverse complement and MurmurHash64A.
+:func:`extract_syncmers_ascii` (``OATK_TPU_DEVICE_HOCO``) starts from raw
+ASCII rows instead: :func:`hoco_phase` compresses homopolymers on the
+device, then the same selection and details run.
 
 What the JAX chain does only to run well on the TPU is not ported: the
 sort-funnel compaction (``_compact_sel``/``_compact_funnel``) with its
@@ -22,6 +25,7 @@ import torch
 
 from .._u64 import as_i64, srl
 from .hashes import MURMUR_SEED
+from .oracle import SEQ_NT4
 from .syncmer_select import syncmer_select
 
 _MURMUR_M = as_i64(0xC6A4A7935BD1E995)
@@ -97,6 +101,73 @@ def extract_hoco_fused(
     sel = syncmer_select(codes_padded, w, s)
     hoco_c = torch.where(codes < 4, codes, 0)
     return selected_details(hoco_c, sel, w, s, max_out)
+
+
+def hoco_phase(seq: torch.Tensor, lens: torch.Tensor) -> dict:
+    """Homopolymer compression on the device (port of
+    ``oatk_tpu/kernels/syncmer.py:_hoco_phase``): ASCII ``[B, L]`` uint8
+    rows with int32 lengths ``[B]`` -> ``hoco_c`` uint8 ``[B, L]`` (codes
+    0-3, an N as 0), ``hoco_l`` int32 ``[B]``, ``ho_rl`` int32 ``[B, L]``
+    (run length minus one), ``is_n`` bool ``[B, L]``, and the selection
+    masks ``eff_n`` (N or past the hoco end) and ``h_in``.
+
+    Kept raw positions scatter to their hoco index; every other position
+    scatters to a spare column L that is dropped (the JAX scatter's
+    ``mode="drop"``), so no two writes meet in a kept column."""
+    B, L = seq.shape
+    dev = seq.device
+    nt4 = torch.from_numpy(SEQ_NT4).to(dev)
+    pos = torch.arange(L, dtype=torch.int32, device=dev)
+    c = torch.where(pos < lens.unsqueeze(1), nt4[seq.long()], 5)
+    prev = torch.cat([c.new_full((B, 1), 255), c[:, :-1]], dim=1)
+    keep = ((c == 4) | (prev == 4) | (c != prev)) & (c != 5)
+    hpos = torch.cumsum(keep, dim=1, dtype=torch.int32) - 1
+    last = hpos[torch.arange(B, device=dev), torch.clamp(lens.long() - 1, min=0)]
+    hoco_l = torch.where(lens > 0, last + 1, 0).to(torch.int32)
+    scat = torch.where(keep, hpos, L).long()
+    del hpos, prev
+
+    def scatter(fill, src):
+        out = torch.full((B, L + 1), fill, dtype=src.dtype, device=dev)
+        return out.scatter_(1, scat, src)[:, :L].contiguous()
+
+    hoco_c = scatter(0, torch.where(c == 4, 0, c).to(torch.uint8))
+    is_n = scatter(False, c == 4)
+    raw_of = scatter(-1, pos.expand(B, L))
+    del scat, c, keep
+    nxt_raw = torch.cat([raw_of[:, 1:], raw_of.new_full((B, 1), -1)], dim=1)
+    h_in = pos < hoco_l.unsqueeze(1)
+    ho_rl = torch.where(
+        h_in, torch.where(nxt_raw >= 0, nxt_raw, lens.unsqueeze(1)) - raw_of - 1, 0
+    ).to(torch.int32)
+    return dict(hoco_c=hoco_c, hoco_l=hoco_l, ho_rl=ho_rl, is_n=is_n,
+                eff_n=is_n | ~h_in, h_in=h_in)
+
+
+def extract_syncmers_ascii(
+    seq: torch.Tensor, lens: torch.Tensor, w: int, s: int, max_out: int,
+    return_hoco: bool = False,
+) -> dict:
+    """Syncmer extraction from raw ASCII rows (port of
+    ``oatk_tpu/kernels/syncmer.py:extract_syncmers_batch_pallas``): the
+    hoco phase, the selection kernel on its codes (4 for an N inside the
+    read, 5 past its end), then :func:`selected_details`.  Returns
+    ``{"packed": [3, max_out+1]}``, plus the hoco arrays ``hoco_c``,
+    ``hoco_l``, ``ho_rl`` and ``is_n`` when ``return_hoco``."""
+    B = seq.shape[0]
+    h = hoco_phase(seq, lens)
+    codes = torch.where(
+        h["eff_n"], torch.where(h["h_in"], 4, 5).to(torch.uint8), h["hoco_c"]
+    )
+    five = codes.new_full((B, 1), 5)
+    codes_padded = torch.cat([five, codes, five.expand(B, w + 2)], dim=1)
+    del codes
+    sel = syncmer_select(codes_padded, w, s)
+    del codes_padded
+    out = {"packed": selected_details(h["hoco_c"], sel, w, s, max_out)}
+    if return_hoco:
+        out.update({k: h[k] for k in ("hoco_c", "hoco_l", "ho_rl", "is_n")})
+    return out
 
 
 def selected_details(

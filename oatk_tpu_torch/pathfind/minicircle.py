@@ -146,7 +146,8 @@ def parse_organelle_minicircle(
 
         scg_meta.scg.utg.clean_consensus()
         ra_db = scg_read_alignment(scg_meta.read_db, scg_meta.scg, for_unzip=False)
-        scg_consensus(scg_meta.read_db, scg_meta.scg, hoco_seq=False, save_seq=False, fo=None)
+        scg_consensus(scg_meta.read_db, scg_meta.scg, hoco_seq=False, save_seq=False, fo=None,
+                      device=scg_meta.device)
         extract_minicircles_with_anchor(ra_db, scg_meta.scg, anchor_sid, paths)
 
     o_asmg = asg.asmg

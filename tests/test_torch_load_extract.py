@@ -1,8 +1,11 @@
-"""Fused loader of oatk_tpu_torch (asm/reads.py:load_and_extract, device
-"cpu") against the JAX package's loader with Pallas extraction and
-device counting (impl="pallas", device_count=True -- what
-OATK_TPU_IMPL=pallas OATK_TPU_COUNT=device selects): every per-read
-array and the SyncmerDB after collect_syncmer_db must be equal."""
+"""Loaders of oatk_tpu_torch (asm/reads.py, device "cpu") against the
+JAX package's with Pallas extraction in interpret mode: the fused loader
+with device counting (impl="pallas", device_count=True -- what
+OATK_TPU_IMPL=pallas OATK_TPU_COUNT=device selects) and with host
+counting, the -D capped flow, the Python reader fallback and the
+device-hoco route.  Every per-read array (values and dtypes) and the
+SyncmerDB after collect_syncmer_db must be equal; the Python reader's
+routes are held against the JAX host oracle."""
 import gzip
 
 import numpy as np
@@ -33,22 +36,45 @@ def reads():
     return rd
 
 
-def _jax_db(paths):
+def _jax_db(paths, max_data=0, device_count=True):
     from oatk_tpu.asm.reads import load_and_extract
     from oatk_tpu.index.syncmer_db import collect_syncmer_db
 
-    db = load_and_extract(paths, W, S, impl="pallas", device_count=True)
+    db = load_and_extract(paths, W, S, max_data, impl="pallas", device_count=device_count)
     assert db is not None
     return db, collect_syncmer_db(db)
 
 
-def _torch_db(paths):
+def _torch_db(paths, max_data=0, device_count=True):
     from oatk_tpu_torch.asm.reads import load_and_extract
     from oatk_tpu_torch.index.syncmer_db import collect_syncmer_db
 
-    db = load_and_extract(paths, W, S, device="cpu")
-    assert db is not None and db._devcount is not None
+    db = load_and_extract(paths, W, S, max_data, device="cpu", device_count=device_count)
+    assert db is not None
+    assert (getattr(db, "_devcount", None) is not None) == (device_count and not max_data)
     return db, collect_syncmer_db(db)
+
+
+def _oracle(paths, max_data=0, collect=False):
+    """The JAX package's host oracle over its Python reader (with
+    ``collect``, after collect_syncmer_db's hash -> id rewrite)."""
+    from oatk_tpu.asm.reads import extract_all_syncmers
+    from oatk_tpu.index.syncmer_db import collect_syncmer_db
+    from oatk_tpu.io.fastx import read_fastx
+
+    db = extract_all_syncmers(read_fastx(paths, max_data), W, S, use_device=False)
+    if collect:
+        collect_syncmer_db(db)
+    return db
+
+
+def _assert_values(db, ref):
+    """Per-read values equal (the oracle stores ho_rl as uint32)."""
+    assert db.n == ref.n > 0
+    for a, b in zip(db.reads, ref.reads):
+        assert a.sid == b.sid and a.name == b.name and a.hoco_l == b.hoco_l
+        for f in ("hoco_code", "ho_rl", "is_n", "m_pos", "s_mer", "k_mer"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), (a.sid, f)
 
 
 def _assert_same(j, t):
@@ -71,9 +97,11 @@ def _assert_same(j, t):
         for f in ("hoco_flat", "rl_flat"):
             w1 = getattr(db1, f)[o0 : o0 + r.hoco_l]
             assert np.array_equal(w1, getattr(db2, f)[o0 : o0 + r.hoco_l]), (i, f)
-    dp1, dp2 = db1._dev_pairs, db2._dev_pairs
-    assert dp1[0] == dp2[0]
-    assert np.array_equal(dp1[1], dp2[1]) and np.array_equal(dp1[2], dp2[2])
+    dp1, dp2 = getattr(db1, "_dev_pairs", None), getattr(db2, "_dev_pairs", None)
+    assert (dp1 is None) == (dp2 is None)
+    if dp1 is not None:
+        assert dp1[0] == dp2[0]
+        assert np.array_equal(dp1[1], dp2[1]) and np.array_equal(dp1[2], dp2[2])
 
 
 @pytest.fixture
@@ -148,12 +176,15 @@ def test_overflow_regrow(tmp_path, monkeypatch):
     _assert_same(ref, t)
 
 
-def test_mixed_format_is_rejected(tmp_path, reads, both_segs):
+def test_mixed_format_falls_back(tmp_path, reads, both_segs):
     """A FASTA file with embedded FASTQ records: the optimistic split is
     discarded (its device lanes invalidated), the unsplit native parse
-    rejects the buffer, and the port refuses instead of falling back."""
+    rejects the buffer, load_and_extract returns None and load_reads
+    takes the Python reader (host hoco, 2-bit blob, the selection on the
+    device, host counting).  Held against the JAX host oracle."""
     from oatk_tpu_torch.asm import pipeline as TP
     from oatk_tpu_torch.asm.reads import load_and_extract
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
     mixed = tmp_path / "m.fa"
     with open(mixed, "w") as f:
@@ -163,17 +194,102 @@ def test_mixed_format_is_rejected(tmp_path, reads, both_segs):
             f.write(f"@q{i}\n{r}\n+\n{'I' * len(r)}\n")
     both_segs(2048)
     assert load_and_extract([str(mixed)], W, S, device="cpu") is None
-    with pytest.raises(NotImplementedError):
-        TP.load_reads([str(mixed)], W, S, device="cpu")
+    calls = []
+    real = TP.extract_all_syncmers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TP, "extract_all_syncmers", lambda *a, **k: calls.append(1) or real(*a, **k))
+        n0 = syncmer_select.launches
+        db = TP.load_reads([str(mixed)], W, S, device="cpu")
+    assert calls and syncmer_select.launches == n0  # CPU tensors: the plain version
+    _assert_values(db, _oracle([str(mixed)]))
 
 
-def test_unported_options_refuse(tmp_path, reads, monkeypatch):
-    from oatk_tpu_torch.asm.reads import load_and_extract
+@pytest.mark.parametrize("where", ["first-file", "second-file"])
+def test_capped_loader(tmp_path, reads, capsys, where):
+    """-D: the sequential flow keeps the reads up to and including the
+    one whose raw bases reach the cap, counts on the host, drops the
+    run-length overflow entries past the cap and reads no further file.
+    Equal to the JAX capped loader (values and dtypes, flats, SyncmerDB)
+    and to the JAX oracle over the capped Python reader."""
+    f1, f2 = tmp_path / "a.fa", tmp_path / "b.fa"
+    _write_fa(str(f1), reads[:25], prefix="a")
+    _write_fa(str(f2), reads[25:], prefix="b")
+    n1 = sum(len(r) for r in reads[:25])
+    cap = n1 // 2 if where == "first-file" else n1 + sum(len(r) for r in reads[25:]) // 3
+    paths = [str(f1), str(f2)]
+    t = _torch_db(paths, max_data=cap)
+    assert "data limit (%d) reached" % cap in capsys.readouterr().err
+    assert 0 < t[0].n < len(reads)
+    assert (t[0].n <= 25) == (where == "first-file")
+    _assert_same(_jax_db(paths, max_data=cap), t)
+    _assert_values(t[0], _oracle(paths, max_data=cap, collect=True))
+
+
+def test_host_count_equals_device_count(tmp_path, reads, both_segs):
+    """OATK_TPU_COUNT=host (each chunk's rows fetched, host sort) gives
+    the ReadDB and SyncmerDB of device counting and of the JAX loader
+    with device_count=False."""
+    fa = tmp_path / "r.fa"
+    _write_fa(str(fa), reads)
+    both_segs(4096)
+    host = _torch_db([str(fa)], device_count=False)
+    _assert_same(_jax_db([str(fa)], device_count=False), host)
+    dev = _torch_db([str(fa)])
+    for f in ("h", "s", "cov", "mp_flat", "mp_off"):
+        assert np.array_equal(getattr(host[1], f), getattr(dev[1], f)), f
+    for a, b in zip(host[0].reads, dev[0].reads):
+        for f in ("hoco_code", "ho_rl", "is_n", "m_pos", "s_mer", "k_mer"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.dtype == y.dtype and np.array_equal(x, y), (a.sid, f)
+
+
+@pytest.mark.parametrize("value,device_count", [("host", False), ("device", True),
+                                                ("auto", True), ("bogus", True)])
+def test_count_knob(tmp_path, reads, monkeypatch, capsys, value, device_count):
+    """load_reads reads OATK_TPU_COUNT: host counts on the host, device
+    and auto on the device; any other value warns with the JAX package's
+    message and runs as auto (device)."""
+    from oatk_tpu_torch.asm import pipeline as TP
 
     fa = tmp_path / "r.fa"
-    _write_fa(str(fa), reads[:5])
-    with pytest.raises(NotImplementedError):
-        load_and_extract([str(fa)], W, S, max_data=1000, device="cpu")
+    _write_fa(str(fa), reads[:10])
+    monkeypatch.setenv("OATK_TPU_COUNT", value)
+    db = TP.load_reads([str(fa)], W, S, device="cpu")
+    assert (getattr(db, "_devcount", None) is not None) == device_count
+    err = capsys.readouterr().err
+    warned = "[W::syncasm] OATK_TPU_COUNT='bogus' not in {'auto','device','host'}; using 'auto'"
+    assert (warned in err) == (value == "bogus")
+
+
+def test_device_hoco_route(tmp_path, reads, monkeypatch):
+    """OATK_TPU_DEVICE_HOCO=1: load_and_extract steps aside, and
+    extract_all_syncmers uploads raw ASCII and runs the hoco phase on the
+    device.  Syncmers and the fetched hoco arrays (values and dtypes)
+    equal the JAX package's device-hoco route in interpret mode."""
+    from oatk_tpu.asm.reads import extract_all_syncmers as j_extract
+    from oatk_tpu.io.fastx import read_fastx as j_read
+
+    from oatk_tpu_torch.asm import pipeline as TP
+    from oatk_tpu_torch.asm.reads import load_and_extract
+
+    rd = list(reads)
+    for i, (p, ch) in enumerate(((50, "N"), (51, "n"), (300, "R"), (301, "y"))):
+        r = list(rd[i % 3])
+        r[p] = ch
+        rd[i % 3] = "".join(r)
+    rd[4] = rd[4].lower()
+    fa = tmp_path / "dh.fa"
+    _write_fa(str(fa), rd)
     monkeypatch.setenv("OATK_TPU_DEVICE_HOCO", "1")
-    with pytest.raises(NotImplementedError):
-        load_and_extract([str(fa)], W, S, device="cpu")
+    assert load_and_extract([str(fa)], W, S, device="cpu") is None
+    t = TP.load_reads([str(fa)], W, S, device="cpu")
+    j = j_extract(j_read([str(fa)]), W, S, impl="pallas")
+    monkeypatch.delenv("OATK_TPU_DEVICE_HOCO")
+    assert any(r.is_n.any() for r in t.reads)
+    assert t.n == j.n
+    for a, b in zip(j.reads, t.reads):
+        assert a.sid == b.sid and a.name == b.name and a.hoco_l == b.hoco_l
+        for f in ("hoco_code", "ho_rl", "is_n", "m_pos", "s_mer", "k_mer"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.dtype == y.dtype and np.array_equal(x, y), (a.sid, f)
+    _assert_values(t, _oracle([str(fa)]))

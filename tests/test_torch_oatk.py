@@ -182,7 +182,19 @@ def test_rotate_cli_byte_identical(tmp_path):
         assert outs[0] == outs[1] and outs[0].startswith(b">")
 
 
-@pytest.mark.parametrize("flag", [["--shards", "2"], ["-D", "1M"]])
+def test_oatk_max_data_byte_identical(genome_reads, tmp_path, monkeypatch, capsys):
+    """-D through both CLIs: the capped sequential loader keeps the read
+    that crosses 200 KiB of raw bases; every output file byte-identical
+    to the JAX package's capped loader (Pallas in interpret mode)."""
+    monkeypatch.setenv("OATK_TPU_IMPL", "pallas")
+    exe, db = _stub(tmp_path, "nad$i")
+    pj, pt = _both(tmp_path, ["-k", "251", "-s", "17", "-c", "3", "-D", "200K", "-m", db,
+                              "--nhmmscan", exe, genome_reads], monkeypatch)
+    assert capsys.readouterr().err.count("data limit (204800) reached") == 2
+    _same_files(pj, pt, ASM + MITO)
+
+
+@pytest.mark.parametrize("flag", [["--shards", "2"]])
 def test_oatk_unported_flags_refuse(tmp_path, flag):
     from oatk_tpu_torch.cli.oatk import main
 

@@ -58,22 +58,107 @@ def test_cuda_without_card_raises(reads_fa, tmp_path, monkeypatch):
         main([reads_fa, "-k", str(K), "-s", str(S), "-o", str(tmp_path / "x")])
 
 
-@pytest.mark.parametrize("flag", [["--cpu"], ["--shards", "2"], ["-D", "1M"]])
-def test_unported_cli_flags_refuse(reads_fa, tmp_path, flag):
+def _same_gfas(oj, ot):
+    for suf in (".utg.gfa", ".utg.final.gfa"):
+        with open(oj + suf, "rb") as f:
+            a = f.read()
+        with open(ot + suf, "rb") as f:
+            b = f.read()
+        assert a.count(b"\nS\t") >= 1
+        assert a == b, suf
+
+
+def test_unported_cli_flags_refuse(reads_fa, tmp_path):
     from oatk_tpu_torch.cli.syncasm import main
 
     with pytest.raises(NotImplementedError):
         main([reads_fa, "-k", str(K), "-s", str(S), "--device", "cpu",
-              "-o", str(tmp_path / "x"), *flag])
+              "-o", str(tmp_path / "x"), "--shards", "2"])
+
+
+@pytest.mark.parametrize("flag", [["--cpu"], ["-D", "500K"]], ids=["--cpu", "-D"])
+def test_cli_flag_gfa_byte_identical(reads_fa, tmp_path, monkeypatch, capsys, flag):
+    """--cpu (host oracle extraction) and -D (the capped sequential
+    loader, host counting) through both CLIs: GFAs byte-identical."""
+    from oatk_tpu.cli.syncasm import main as j_main
+    from oatk_tpu_torch.cli.syncasm import main as t_main
+
+    monkeypatch.setenv("OATK_TPU_IMPL", "pallas")
+    oj, ot = str(tmp_path / "jax"), str(tmp_path / "torch")
+    common = [reads_fa, "-k", str(K), "-s", str(S), "-c", str(C), *flag]
+    assert j_main([*common, "-o", oj]) == 0
+    capsys.readouterr()
+    assert t_main([*common, "--device", "cpu", "-o", ot]) == 0
+    err = capsys.readouterr().err
+    assert ("data limit (512000) reached" in err) == (flag[0] == "-D")
+    _same_gfas(oj, ot)
 
 
 @pytest.mark.parametrize(
-    "env", ["OATK_TPU_DEVICE_CONSENSUS", "OATK_TPU_DEVICE_EM"]
+    "env", ["OATK_TPU_DEVICE_CONSENSUS", "OATK_TPU_DEVICE_EM", "OATK_TPU_DEVICE_HOCO"]
 )
-def test_unported_device_knobs_refuse(reads_fa, tmp_path, monkeypatch, env):
+def test_device_knob_gfa_byte_identical(reads_fa, tmp_path, monkeypatch, capsys, env):
+    """The opt-in device stages against the JAX package with the same
+    knob.  DEVICE_CONSENSUS is integer-exact and DEVICE_HOCO moves only
+    where the hoco phase runs, so their GFAs must be byte-identical.
+    DEVICE_EM sums in float64 with index_add_; on the CPU that is
+    sequential, as JAX's segment_sum is there, so its GFAs are held
+    byte-identical too (the card's atomics are held to 1e-9 by
+    chip_smoke.py instead).  Each run goes through its device route."""
+    import oatk_tpu.asm.pipeline as J
+    import oatk_tpu_torch.asm.pipeline as T
+    from oatk_tpu.asm import coverage as JC
+    from oatk_tpu_torch.asm import consensus as TCS
+    from oatk_tpu_torch.asm import coverage as TC
+    from oatk_tpu_torch.asm import reads as TR
+
+    monkeypatch.setenv("OATK_TPU_IMPL", "pallas")
+    monkeypatch.setenv("OATK_TPU_COUNT", "device")
+    monkeypatch.setenv(env, "1")
+    monkeypatch.setattr(JC, "_device_em_warned", False)
+    monkeypatch.setattr(TC, "_device_em_warned", False)
+    monkeypatch.setattr(TC._em_device_run, "calls", 0)
+    monkeypatch.setattr(TCS._runlen_reps_device, "calls", 0)
+    hoco_calls = []
+    real_hoco = TR._extract_device_hoco
+    monkeypatch.setattr(TR, "_extract_device_hoco",
+                        lambda *a: hoco_calls.append(1) or real_hoco(*a))
+    oj, ot = str(tmp_path / "jax"), str(tmp_path / "torch")
+    J.syncasm([reads_fa], k=K, s=S, min_k_cov=C, do_ec=True, do_unzip=3, out=oj)
+    capsys.readouterr()
+    T.syncasm([reads_fa], k=K, s=S, min_k_cov=C, do_ec=True, do_unzip=3, out=ot,
+              device="cpu")
+    err = capsys.readouterr().err
+    if env == "OATK_TPU_DEVICE_EM":
+        assert TC._em_device_run.calls > 0
+        assert err.count("OATK_TPU_DEVICE_EM is experimental") == 1
+    elif env == "OATK_TPU_DEVICE_CONSENSUS":
+        assert TCS._runlen_reps_device.calls > 0
+    else:
+        assert hoco_calls == [1]
+    _same_gfas(oj, ot)
+
+
+def test_mixed_format_gfa_byte_identical(reads_fa, tmp_path, monkeypatch):
+    """A FASTA file with every other record written as FASTQ: the native
+    parser rejects it in both packages and both take the Python reader;
+    GFAs byte-identical."""
+    import oatk_tpu.asm.pipeline as J
     import oatk_tpu_torch.asm.pipeline as T
 
-    monkeypatch.setenv(env, "1")
-    with pytest.raises(NotImplementedError):
-        T.syncasm([reads_fa], k=K, s=S, min_k_cov=C, do_ec=False, do_unzip=0,
-                  out=str(tmp_path / "x"), device="cpu")
+    mixed = tmp_path / "mixed.fa"
+    lines = open(reads_fa).read().split("\n")
+    with open(mixed, "w") as f:
+        for i in range(0, len(lines) - 1, 2):
+            name, seq = lines[i][1:], lines[i + 1]
+            f.write(f"@{name}\n{seq}\n+\n{'I' * len(seq)}\n" if i % 4 else f">{name}\n{seq}\n")
+    calls = []
+    real = T.extract_all_syncmers
+    monkeypatch.setattr(T, "extract_all_syncmers", lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setenv("OATK_TPU_IMPL", "pallas")
+    oj, ot = str(tmp_path / "jax"), str(tmp_path / "torch")
+    J.syncasm([str(mixed)], k=K, s=S, min_k_cov=C, do_ec=True, do_unzip=3, out=oj)
+    T.syncasm([str(mixed)], k=K, s=S, min_k_cov=C, do_ec=True, do_unzip=3, out=ot,
+              device="cpu")
+    assert calls == [1]
+    _same_gfas(oj, ot)

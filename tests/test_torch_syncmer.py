@@ -148,3 +148,61 @@ def test_murmur_rows_match_host_oracle():
         blocks = raw.view(np.uint64)
         got = to_numpy_u64(murmur64_rows(torch.from_numpy(raw.view(np.int64)), n_bytes))
         assert np.array_equal(got, murmur64_blocks_np(blocks, n_bytes))
+
+
+def _ascii_rows(rng, B, L):
+    """Random ASCII reads: homopolymer runs of upper- and lowercase
+    bases, N/n, other IUPAC letters and stray bytes; one empty row, one
+    full row, garbage bytes past every row's length."""
+    alphabet = np.frombuffer(b"ACGTACGTACGTacgtNnRYKMSWBDHVryU-*", np.uint8)
+    seq = alphabet[rng.integers(0, len(alphabet), (B, L))]
+    run = rng.random((B, L)) < 0.5  # homopolymers: repeat the previous byte
+    for j in range(1, L):
+        seq[:, j] = np.where(run[:, j], seq[:, j - 1], seq[:, j])
+    lens = rng.integers(0, L + 1, B).astype(np.int32)
+    lens[0], lens[1] = 0, L
+    for b in range(B):
+        seq[b, lens[b]:] = rng.integers(0, 256, L - lens[b])
+    return seq, lens
+
+
+@pytest.mark.parametrize("B,L", [(6, 512), (3, 2048)])
+def test_hoco_phase_matches_jax(B, L):
+    """hoco_phase against the JAX package's _hoco_phase, exactly, for
+    every returned array (values and dtypes)."""
+    import jax.numpy as jnp
+
+    from oatk_tpu.kernels.syncmer import _hoco_phase
+    from oatk_tpu_torch.kernels.syncmer import hoco_phase
+
+    seq, lens = _ascii_rows(np.random.default_rng(B * L), B, L)
+    ref = {k: np.asarray(v) for k, v in _hoco_phase(jnp.asarray(seq), jnp.asarray(lens)).items()}
+    got = {k: v.numpy() for k, v in hoco_phase(torch.from_numpy(seq), torch.from_numpy(lens)).items()}
+    assert set(got) == set(ref)
+    assert ref["is_n"].any() and (ref["ho_rl"] > 0).any()
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype and np.array_equal(got[k], ref[k]), k
+
+
+@pytest.mark.parametrize("w,s", [(51, 11), (151, 13)])
+def test_extract_ascii_matches_jax(w, s):
+    """extract_syncmers_ascii (hoco phase, selection, details) against
+    the JAX package's extract_syncmers_batch_pallas in interpret mode:
+    the packed rows below n_sel, the count slot and the hoco arrays."""
+    import jax.numpy as jnp
+
+    from oatk_tpu.kernels.syncmer import extract_syncmers_batch_pallas
+    from oatk_tpu_torch.kernels.syncmer import extract_syncmers_ascii
+
+    seq, lens = _ascii_rows(np.random.default_rng(w), 4, 2048)
+    seq[2, :] = np.frombuffer(b"ACGT", np.uint8)[np.random.default_rng(1).integers(0, 4, 2048)]
+    lens[2] = 2048  # an N-free row with many syncmers
+    max_out = 1024
+    ref = extract_syncmers_batch_pallas(jnp.asarray(seq), jnp.asarray(lens), w, s, max_out,
+                                        interpret=True, return_hoco=True)
+    got = extract_syncmers_ascii(torch.from_numpy(seq), torch.from_numpy(lens), w, s, max_out,
+                                 return_hoco=True)
+    assert _assert_same(np.asarray(ref["packed"]), got["packed"].numpy(), max_out) > 0
+    for k in ("hoco_c", "hoco_l", "ho_rl", "is_n"):
+        a, b = np.asarray(ref[k]), got[k].numpy()
+        assert a.dtype == b.dtype and np.array_equal(a, b), k
