@@ -21,7 +21,10 @@ Phases (any failure makes the exit code non-zero):
    correction's calls at k=1001 (tl up to 5,700, ql up to 6,600, EC's
    band, restarts from waves of up to ~200 diagonals), 40 unbanded
    small cases, one batched launch of 256 states on both of the
-   kernel's memory routes; per-call and kernel-only times by CUDA events;
+   kernel's memory routes, and one ragged round of the 2,000 EC-shaped
+   states (as EC's lockstep scheduler launches them) on both routes;
+   per-call, per-round and kernel-only times by CUDA events, the round's
+   kernel at 128 and at 256 threads per block;
 5. full ``syncasm`` on the card and with ``device="cpu"`` (the kernels'
    plain versions) on a 1.2 Mbp set (k=151/s=13/c=3) and a ~10 Mbp set
    (k=1001/s=31/c=3): the GFAs must be byte-identical;
@@ -31,13 +34,16 @@ Phases (any failure makes the exit code non-zero):
    S/L line counts and the sha256 of ``.utg.final.gfa``;
 7. ``oatk`` (syncasm -> annotation -> pathfinder) through its CLI at its
    defaults on the same 110 Mbp set, with a stub nhmmscan written into
-   the work directory: once on the card with OATK_TPU_WF_BACKEND=device
-   (EC's wavefront on the card), once with ``--device cpu`` and the
-   default backend.  Every output file byte-identical, ``.utg.final.gfa``
-   equal to phase 6's, both kernels launched, and the wavefront launch
-   count equal to EC's wf_ed_core call count (no call left the kernel);
-   wall time, stage split, annotation and pathfinder time, peak device
-   memory;
+   the work directory: on the card with OATK_TPU_WF_BACKEND=device (EC's
+   DFS of every read in lockstep, one wavefront launch per round), with
+   ``--device cpu`` and the default backend, on the card with
+   ``EC_INFLIGHT = 1`` (one launch per DFS extension), and in lockstep
+   again.  Every output file byte-identical to the CPU run's,
+   ``.utg.final.gfa`` equal to phase 6's, both kernels launched, every EC
+   extension a launched item (no call left the kernel), one launch per
+   round, in lockstep fewer than one launch per 20 extensions and an
+   ``ec`` stage below the one-read run's; wall time, stage split, rounds,
+   items per launch, annotation and pathfinder time, peak device memory;
 8. ``syncasm -D 55M`` through its CLI at 110 Mbp (the capped sequential
    loader, host counting) on the card and with ``--device cpu``: GFAs
    byte-identical, the data-limit line printed, fewer reads than phase 6,
@@ -63,7 +69,9 @@ Phases (any failure makes the exit code non-zero):
 
 The last two lines of standard output are the card line and a JSON
 object ``{"ok": true, "device": {...}}``; the line before them lists the
-kernels with their launch counts and times.  Without a CUDA device the
+kernels with their launch counts, times and bounds (the larger of the
+bytes each must move over 3.35 TB/s and its operations over 67 T/s, the
+H100 SXM's memory rate and non-tensor rate).  Without a CUDA device the
 script prints no result and exits with code 2.  Datasets are generated
 from fixed seeds into ``build/chip_smoke/`` (git-ignored).
 """
@@ -93,6 +101,9 @@ SMALL_CASES = [
     (1001, 31, 4, 900),
 ]
 
+
+HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
+ALU_OPS = 67e12    # H100 SXM non-tensor rate, operations/s
 
 WF_STATES = 2000   # single states with the measured EC call distribution
 WF_BATCH = 256     # one batched launch
@@ -177,7 +188,15 @@ def phase_kernel(device, main_shape=(2048, 16384), small=SMALL_CASES, reps=10) -
         log(f"[kernel] w={w} s={s} B={B} L={L}: equal={same} max_abs_err={err} "
             f"n_sel={n_sel} kernel {ms:.4f} ms plain {plain_ms:.4f} ms (median, CUDA events)")
         if i == 0:
+            # each input byte read once, each int32 code written once; at
+            # least ten operations a position (the rolling s-mer, its
+            # window minimum, the closed test)
+            nbytes, ops = x.numel() + 4 * B * L, 10 * B * L
             res["ms"], res["plain_ms"] = ms, plain_ms
+            res["bound_ms"] = 1000 * max(nbytes / HBM_BPS, ops / ALU_OPS)
+            res["bound_by"] = "bytes" if nbytes / HBM_BPS >= ops / ALU_OPS else "operations"
+            log(f"[kernel] bound at the main chunk: {nbytes} B moved, {ops} operations: "
+                f"{res['bound_ms']:.4f} ms by {res['bound_by']}")
         del x, got, ref
     res["max_abs_err"] = worst
     res["ok"] = ok
@@ -350,19 +369,108 @@ def phase_wf(device, n_states=WF_STATES, batch=WF_BATCH, n_unbanded=WF_UNBANDED)
         f"(smem {WE.smem_bytes(TL, QL, D_cap)} B): equal={same_b} global route equal={same_g}; "
         f"kernel {b_ms:.4f} ms (global route {g_ms:.4f} ms) plain {plain_b:.3f} ms (one run, host clock)")
     med = lambda v: sorted(v)[len(v) // 2] if v else float("nan")  # noqa: E731
-    res = dict(ok=ok, max_abs_err=worst, ms=med(k_ms), plain_ms=med(p_ms))
     log(f"[wf] B=1 at tl 700-1000 ({len(k_ms)} states, median by CUDA events): kernel "
-        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, wf_ed_core_device per call "
+        f"{med(k_ms):.4f} ms, plain {med(p_ms):.4f} ms, wf_ed_core_device per call "
         f"(upload, launch, read-back) {med(d_ms):.4f} ms")
-    profile_wf(timed, xb)
-    return res
+    rnd = phase_round(states[:n_states], device)
+    ok &= rnd["ok"]
+    profile_wf(timed, xb, rnd["args"])
+    return dict(ok=ok, max_abs_err=max(worst, rnd["max_abs_err"]), ms=rnd["ms"],
+                plain_ms=rnd["plain_ms"], bound_ms=rnd["bound_ms"], bound_by=rnd["bound_by"])
 
 
-def profile_wf(states, xb) -> None:
-    """torch.profiler over ``wf_ed_core_device`` on ``states`` (B=1 each) and ten
-    launches of the batch ``xb``: the kernel's own device time (these
+def clone_states(states):
+    """Copies of WfStates that a call may advance without touching the
+    originals."""
+    import dataclasses
+
+    return [dataclasses.replace(s, wd=s.wd.copy(), wk=s.wk.copy()) for s in states]
+
+
+def phase_round(states, device) -> dict:
+    """One ragged round of ``states`` (EC-shaped), as EC's lockstep
+    scheduler launches it, against the ragged plain version on the same
+    card buffer, exactly over the whole output, on the shared-memory
+    route and with every item on the global route.  CUDA events time the
+    kernel alone at 128 and 256 threads per block (in turns), the plain
+    version once, the whole round (pack, upload, launch, read-back,
+    unpack) and the same states as one B=1 call each.  The bound counts
+    each item's ts, qs, meta and k[:n] read once and its out_meta and
+    out_k[:S] written once, and four operations per wave cell of the
+    steps the kernel ran plus one compare per target base."""
+    import numpy as np
+    import torch
+
+    from oatk_tpu_torch.kernels import wf_ed as WE
+
+    dev = torch.device(device)
+    card = dev.type == "cuda"
+    B = len(states)
+    lim = WE._smem_limit_of(WE._load(), dev) if card else WE._I32_MAX
+    inps, layouts = {}, {}
+    for route, glob in (("shared", False), ("global", True)):
+        lay = WE.round_layout(states, lim, glob)
+        h = np.zeros(lay.in_words, np.int32)
+        WE.pack_round(h, lay, states)
+        inps[route], layouts[route] = torch.from_numpy(h).to(dev), lay
+    lay, inp = layouts["shared"], inps["shared"]
+    # (an item too large for shared memory keeps the global route here)
+    scr_s = torch.empty(lay.scratch_words, dtype=torch.int32, device=dev) if lay.scratch_words else None
+    out = torch.empty(lay.out_words, dtype=torch.int32, device=dev)
+    WE.wf_ed_core_ragged(inp, out, B, lay.smem, scr_s)
+    out_g = torch.empty_like(out)
+    scratch = torch.empty(layouts["global"].scratch_words, dtype=torch.int32, device=dev)
+    WE.wf_ed_core_ragged(inps["global"], out_g, B, 0, scratch)
+    torch.cuda.synchronize()
+    ref = torch.empty_like(out)
+    plain_ms = event_ms(lambda: WE.wf_ed_core_ragged_plain(inp, ref, B))
+    err = max(int((out.long() - ref.long()).abs().max()), int((out_g.long() - ref.long()).abs().max()))
+    same, same_g = torch.equal(out, ref), torch.equal(out_g, ref)
+
+    o = ref.cpu().numpy()
+    om = o[lay.desc[:, 4, None] + np.arange(8)]
+    tl, ql, n, score = lay.meta[:, 0], lay.meta[:, 1], lay.meta[:, 6], lay.meta[:, 4]
+    S = lay.desc[:, 7]
+    nbytes = int((tl + ql + 4 * n + 32 + 32 + 4 * S).sum())
+    ops = int((4 * (om[:, 0] - score + 1) * om[:, 2] + tl).sum())
+    bound_ms = 1000 * max(nbytes / HBM_BPS, ops / ALU_OPS)
+    bound_by = "bytes" if nbytes / HBM_BPS >= ops / ALU_OPS else "operations"
+
+    times = {128: [], 256: []}
+    saved = WE.THREADS
+    try:
+        for t in (128, 256, 256, 128):
+            WE.THREADS = t
+            times[t].append(median_ms(lambda: WE.wf_ed_core_ragged(inp, out, B, lay.smem, scr_s), 10))
+    finally:
+        WE.THREADS = saved
+    copies = [clone_states(states) for _ in range(3)]
+    round_ms = sorted(event_ms(lambda c=c: WE.wf_ed_core_rounds(c, dev)) for c in copies)[1]
+    one = clone_states(states)
+    b1_ms = event_ms(lambda: [WE.wf_ed_core_device(st) for st in one])
+    same_states = all(np.array_equal(a.wk, b.wk) and (a.score, a.t_end, a.q_end) == (b.score, b.t_end, b.q_end)
+                      for a, b in zip(copies[0], one))
+    ms = sorted(times[WE.THREADS])[0]
+    log(f"[wf] ragged round of {B} EC-shaped states: in {4 * lay.in_words} B, out {4 * lay.out_words} B, "
+        f"smem {lay.smem} B, widths S max {int(S.max())}, waves n max {int(n.max())}; "
+        f"equal={same} global route equal={same_g} max_abs_err={err}; round states equal the B=1 "
+        f"calls': {same_states}")
+    log(f"[wf] ragged round kernel (median of 10 launches, CUDA events, in turns 128/256/256/128): "
+        f"128 threads {times[128]} ms, 256 threads {times[256]} ms (THREADS={WE.THREADS}); "
+        f"plain {plain_ms:.3f} ms (one run)")
+    log(f"[wf] whole round (pack, upload, launch, read-back, unpack) {round_ms:.4f} ms vs the same "
+        f"{B} states as B=1 wf_ed_core_device calls {b1_ms:.4f} ms (CUDA events); bound "
+        f"{bound_ms * 1000:.3f} us by {bound_by} ({nbytes} B, {ops} operations)")
+    return dict(ok=same and same_g and same_states, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, args=(inp, out, B, lay.smem, scr_s))
+
+
+def profile_wf(states, xb, ragged) -> None:
+    """torch.profiler over ``wf_ed_core_device`` on ``states`` (B=1 each),
+    ten launches of the batch ``xb`` and five of the ragged round
+    ``ragged`` (inp, out, B, smem): the kernel's own device time (these
     CUDA-event times above include the wrapper's host work, during
-    which the card waits), and where one such call's host time goes."""
+    which the card waits), and where one B=1 call's host time goes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -378,12 +486,16 @@ def profile_wf(states, xb) -> None:
         for _ in range(10):
             WE.wf_ed_core_batch(*xb)
         torch.cuda.synchronize()
+        for _ in range(5):
+            WE.wf_ed_core_ragged(*ragged)
+        torch.cuda.synchronize()
     ker = [e.time_range.elapsed_us() for e in prof.events()
            if "wf_ed_kernel" in e.name and e.device_type == torch.autograd.DeviceType.CUDA]
     med = lambda v: sorted(v)[len(v) // 2] if v else float("nan")  # noqa: E731
-    b1, bb = ker[: len(states)], ker[len(states):]
+    b1, bb, br = ker[: len(states)], ker[len(states): len(states) + 10], ker[len(states) + 10:]
     log(f"[wf] profiler: wf_ed_kernel device time, median of {len(b1)} B=1 wf_ed_core_device calls "
-        f"{med(b1):.1f} us, of {len(bb)} B={xb[0].shape[0]} launches {med(bb):.1f} us")
+        f"{med(b1):.1f} us, of {len(bb)} B={xb[0].shape[0]} launches {med(bb):.1f} us, of "
+        f"{len(br)} ragged rounds of {ragged[2]} {med(br):.1f} us")
     rows = sorted(prof.key_averages(), key=lambda r: -r.self_cpu_time_total)[:8]
     n = max(1, len(states))
     log("[wf] profiler: host time per wf_ed_core_device call by op (self CPU us / call): " + "; ".join(
@@ -629,19 +741,29 @@ def run_oatk(fa: str, out: str, device: str, backend: str, exe: str, db: str) ->
     return dict(rc=rc, wall=wall, stages=stages, ec=ec, spent=spent)
 
 
+def ec_stage_ms(stages: str) -> float:
+    """The ``ec`` stage of a [T::syncasm] line, in ms (nan if absent)."""
+    return float(stages.split(" ec=")[1].split("ms")[0]) if " ec=" in stages else float("nan")
+
+
 def phase_oatk(work: str, fa: str, n_bp: int, syncasm_sha: str, card="cuda") -> dict:
     """This slice's main path: ``oatk`` on the 110 Mbp set, on the card
-    with EC's wavefront kernel (OATK_TPU_WF_BACKEND=device), then with
-    ``--device cpu`` and the default backend (native batch EC); every
-    output file byte-identical, ``.utg.final.gfa`` the syncasm phase's,
-    and every EC wavefront call a kernel launch."""
+    with EC's wavefront kernel (OATK_TPU_WF_BACKEND=device, every read's
+    DFS in lockstep), then with ``--device cpu`` and the default backend
+    (native batch EC), then on the card with ``EC_INFLIGHT = 1`` (one
+    launch per DFS extension), then in lockstep again.  Every output file
+    byte-identical to the CPU run's, ``.utg.final.gfa`` the syncasm
+    phase's, every EC extension a launched item, one launch per round,
+    in lockstep fewer launches than one per 20 extensions and an ``ec``
+    stage below the one-read run's."""
     import glob
 
     import torch
 
+    from oatk_tpu_torch.asm import ec as EC
     from oatk_tpu_torch.asm.ec import read_error_correction
+    from oatk_tpu_torch.kernels import wf_ed as WE
     from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
-    from oatk_tpu_torch.kernels.wf_ed import wf_ed_core_batch
 
     exe = os.path.join(work, "fake_nhmmscan")
     with open(exe, "w") as f:
@@ -650,49 +772,109 @@ def phase_oatk(work: str, fa: str, n_bp: int, syncasm_sha: str, card="cuda") -> 
     db = os.path.join(work, "fake.hmm")
     with open(db, "w") as f:
         f.write("dummy\n")
+    real_ragged, real_rounds = WE.wf_ed_core_ragged, WE.wf_ed_core_rounds
+    per_launch: list[int] = []
+    events: list = []  # a CUDA event pair around each launch: its device time
+    in_rounds = [0.0]  # host seconds inside wf_ed_core_rounds
+
+    def recording(inp, out, B, *a):
+        per_launch.append(B)
+        if not inp.is_cuda:
+            return real_ragged(inp, out, B, *a)
+        ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        res = real_ragged(inp, out, B, *a)
+        ev[1].record()
+        events.append(ev)
+        return res
+
+    def timed_rounds(states, device=None):
+        t0 = time.perf_counter()
+        try:
+            return real_rounds(states, device)
+        finally:
+            in_rounds[0] += time.perf_counter() - t0
+
+    # while it stands in for it, the real function counts its rounds
+    # under its own name, that is, on the wrapper
+
     outs, runs = {}, {}
-    for label, device, backend in (("card", card, "device"), ("cpu", "cpu", "auto")):
+    plan = (("card", card, "device", None), ("cpu", "cpu", "auto", None),
+            ("card_one", card, "device", 1), ("card_again", card, "device", None))
+    for label, device, backend, inflight in plan:
         d = os.path.join(work, f"oatk_{label}")
         os.makedirs(d, exist_ok=True)
         for old in glob.glob(os.path.join(d, "o.asm.*")):
             os.remove(old)
         out = os.path.join(d, "o.asm")
-        if label == "card":
+        on_card = label != "cpu"
+        if on_card:
             torch.cuda.reset_peak_memory_stats()
-            syncmer_select.launches = 0
-            wf_ed_core_batch.launches = 0
-            read_error_correction.wf_calls = 0
-        r = run_oatk(fa, out, device, backend, exe, db)
-        if label == "card":
-            r.update(select=syncmer_select.launches, wf=wf_ed_core_batch.launches,
-                     wf_calls=read_error_correction.wf_calls,
-                     peak=torch.cuda.max_memory_allocated())
+        syncmer_select.launches = 0
+        WE.wf_ed_core_batch.launches = WE.wf_ed_core_batch.items = 0
+        timed_rounds.rounds = 0
+        read_error_correction.wf_calls = 0
+        per_launch.clear()
+        events.clear()
+        in_rounds[0] = 0.0
+        saved = EC.EC_INFLIGHT
+        EC.EC_INFLIGHT, WE.wf_ed_core_ragged, WE.wf_ed_core_rounds = inflight, recording, timed_rounds
+        try:
+            r = run_oatk(fa, out, device, backend, exe, db)
+        finally:
+            EC.EC_INFLIGHT, WE.wf_ed_core_ragged, WE.wf_ed_core_rounds = saved, real_ragged, real_rounds
+        r.update(select=syncmer_select.launches, wf=WE.wf_ed_core_batch.launches,
+                 items=WE.wf_ed_core_batch.items, rounds=timed_rounds.rounds,
+                 wf_calls=read_error_correction.wf_calls, per_launch=sorted(per_launch),
+                 peak=torch.cuda.max_memory_allocated() if on_card else 0,
+                 ec_ms=ec_stage_ms(r["stages"]), rounds_ms=in_rounds[0] * 1000,
+                 kernel_ms=sum(a.elapsed_time(b) for a, b in events))
         runs[label], outs[label] = r, out
         sp = " ".join(f"{k}={v:.3f}s" for k, v in r["spent"].items())
-        log(f"[oatk] {label} run, --device {device} OATK_TPU_WF_BACKEND={backend}: rc={r['rc']} "
-            f"wall {r['wall']:.3f} s ({n_bp / 1e6 / r['wall']:.3f} Mbp/s); {sp}")
+        log(f"[oatk] {label} run, --device {device} OATK_TPU_WF_BACKEND={backend} "
+            f"EC_INFLIGHT={inflight}: rc={r['rc']} wall {r['wall']:.3f} s "
+            f"({n_bp / 1e6 / r['wall']:.3f} Mbp/s); {sp}")
         log(f"[oatk] {label} run {r['stages']}")
-        ec_ms = r["stages"].split(" ec=")[1].split()[0] if " ec=" in r["stages"] else "?"
-        log(f"[oatk] {label} run ec stage {ec_ms}; EC: " + "; ".join(r["ec"][1:5]))
-    c = runs["card"]
-    log(f"[oatk] card run: syncmer_select launches={c['select']} wf_ed launches={c['wf']} "
-        f"EC wf_ed_core calls={c['wf_calls']} max_memory_allocated={c['peak']} B")
+        log(f"[oatk] {label} run ec stage {r['ec_ms']} ms; EC: " + "; ".join(r["ec"][1:5]))
+        if on_card:
+            pl = r["per_launch"]
+            log(f"[oatk] {label} run: syncmer_select launches={r['select']} wf_ed launches={r['wf']} "
+                f"rounds={r['rounds']} items={r['items']} EC wf_ed_core calls={r['wf_calls']}; items "
+                f"per launch median {pl[len(pl) // 2] if pl else 0} max {pl[-1] if pl else 0}; "
+                f"max_memory_allocated={r['peak']} B")
+            log(f"[oatk] {label} run: of the ec stage's {r['ec_ms']} ms, {r['rounds_ms']:.1f} ms (host "
+                f"clock) inside wf_ed_core_rounds (pack, upload, launch, wait, read-back, unpack), "
+                f"the kernels' device time at most {r['kernel_ms']:.3f} ms (CUDA events around "
+                f"each launch, which also hold the host's launch work while the card waits): the "
+                f"card idles at least {100 * (1 - r['kernel_ms'] / r['ec_ms']):.2f}% of the stage")
 
     names = {lb: sorted(os.path.basename(p)[len("o.asm"):] for p in glob.glob(outs[lb] + ".*"))
              for lb in outs}
-    ok = all(r["rc"] == 0 for r in runs.values()) and names["card"] == names["cpu"]
-    ok &= all(s in names["card"] for s in OATK_SUFFIXES)
-    for suf in names["card"]:
-        a = gfa_summary(outs["card"] + suf)
-        b = gfa_summary(outs["cpu"] + suf)
-        same = a["sha256"] == b["sha256"] and a["bytes"] > 0
-        ok &= same
-        log(f"[oatk] {suf}: identical={same} bytes={a['bytes']} sha256={a['sha256'][:16]}")
+    ok = all(r["rc"] == 0 for r in runs.values())
+    ok &= all(s in names["cpu"] for s in OATK_SUFFIXES)
+    for lb in ("card", "card_one", "card_again"):
+        ok &= names[lb] == names["cpu"]
+        for suf in names["cpu"]:
+            a = gfa_summary(outs[lb] + suf)
+            b = gfa_summary(outs["cpu"] + suf)
+            same = a["sha256"] == b["sha256"] and a["bytes"] > 0
+            ok &= same
+            log(f"[oatk] {lb} {suf}: identical to the CPU run's={same} bytes={a['bytes']} "
+                f"sha256={a['sha256'][:16]}")
     final = gfa_summary(outs["card"] + ".utg.final.gfa")["sha256"]
     same_final = final == syncasm_sha
     log(f"[oatk] .utg.final.gfa equals the syncasm phase's: {same_final}")
-    ok &= same_final and c["select"] > 0 and c["wf"] > 0 and c["wf"] == c["wf_calls"]
-    return dict(ok=ok, launches=c["wf"], select=c["select"])
+    ok &= same_final
+    c, one, again = runs["card"], runs["card_one"], runs["card_again"]
+    for r in (c, one, again):
+        ok &= r["select"] > 0 and r["wf"] > 0 and r["items"] == r["wf_calls"] and r["wf"] == r["rounds"]
+    ok &= c["wf"] * 20 < c["wf_calls"] and again["wf"] * 20 < again["wf_calls"]
+    ok &= one["wf"] == one["wf_calls"] == c["wf_calls"]
+    faster = max(c["ec_ms"], again["ec_ms"]) < one["ec_ms"]
+    log(f"[oatk] ec stage: lockstep {c['ec_ms']} / {again['ec_ms']} ms, EC_INFLIGHT=1 "
+        f"{one['ec_ms']} ms; lockstep below: {faster}")
+    ok &= faster
+    return dict(ok=ok, launches=c["wf"], rounds=c["rounds"], items=c["items"], select=c["select"])
 
 
 def run_cli(main, argv: list) -> dict:
@@ -1113,6 +1295,7 @@ def main() -> int:
         if "launches" in r:
             routes[name] = r["launches"]
 
+    # no single PyTorch call computes either function: library_ms is null
     kernels = {"kernels": [{
         "name": "syncmer_select",
         "route": "cuda",
@@ -1123,15 +1306,23 @@ def main() -> int:
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
+        "bound_ms": kern["bound_ms"],
+        "bound_by": kern["bound_by"],
+        "library_ms": None,
     }, {
         "name": "wf_ed",
         "route": "cuda",
         "source": "oatk_tpu_torch/csrc/wf_ed.cu",
         "replaces": "oatk_tpu/kernels/wavefront_pallas.py:169",
         "launches": oatk["launches"],
+        "rounds": oatk["rounds"],
+        "items": oatk["items"],
         "max_abs_err": wf["max_abs_err"],
         "ms": wf["ms"],
         "plain_ms": wf["plain_ms"],
+        "bound_ms": wf["bound_ms"],
+        "bound_by": wf["bound_by"],
+        "library_ms": None,
     }]}
     if not ok:
         log("[done] a phase failed")

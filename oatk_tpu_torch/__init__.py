@@ -6,8 +6,8 @@ tree (``asm/``, ``index/``, ``kernels/``, ``graph/``, ``io/``,
 ``oatk_tpu/X/y.py`` is ``oatk_tpu_torch/X/y.py``.  It imports torch and
 numpy and never jax: the device code is rewritten in PyTorch ops around
 hand-written CUDA kernels (``csrc/``), and the host stages (numpy plus
-the shared native C library) are copies whose C sources are read from
-``oatk_tpu/native/`` by path.
+the native C library) are copies, the C sources included
+(``native/*.c``).
 
 Every function that creates a tensor takes an explicit ``device``; the
 CLI threads ``--device`` (default ``cuda``) down to them.  There is no

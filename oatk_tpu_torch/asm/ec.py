@@ -16,6 +16,7 @@ import sys
 import numpy as np
 
 from ..index.syncmer_db import SyncmerDB
+from ..kernels import wavefront as _wf
 from ..kernels.wavefront import WfState, wf_ed_core
 from ..utils import log_info
 from .reads import ReadDB
@@ -27,6 +28,9 @@ EC_AMBISNQ = 2
 EC_AMBISEQ = 3
 
 MAX_DFS_PATH = 10000
+# reads whose DFS runs in one lockstep round under the device wavefront
+# backend; None: every read
+EC_INFLIGHT: int | None = None
 MIN_ERR_SEQ_LEN = 10
 MIN_ERR_BASE = 6
 U32_POS_MASK = 0x7FFFFFFF
@@ -89,6 +93,10 @@ class _DfsInfo:
 
 
 def _dfs_search(g, dfs: _DfsInfo, sink: int, conf: WfState):
+    """DFS over the graph arcs from ``dfs.c_path[-1]``, as a generator: at
+    each branch extension it yields ``conf`` with the grown query and
+    resumes once the driver has advanced it (one wf_ed_core call, or the
+    state's item of a lockstep round)."""
     if dfs.n_path >= MAX_DFS_PATH:
         return
     c_seq = dfs.c_seq
@@ -114,7 +122,7 @@ def _dfs_search(g, dfs: _DfsInfo, sink: int, conf: WfState):
             c_seq.extend(k_seq[ls:].encode())
 
         conf.qs = np.frombuffer(bytes(c_seq), np.uint8)
-        wf_ed_core(conf)
+        yield conf
         read_error_correction.wf_calls += 1
 
         score = conf.score + len(conf.ts) - conf.t_end
@@ -143,7 +151,7 @@ def _dfs_search(g, dfs: _DfsInfo, sink: int, conf: WfState):
             and len(conf.qs) - l_seq <= len(conf.ts) + conf.bw
             and ((sink != -1 and sink != w) or conf.t_end < len(conf.ts))
         ):
-            _dfs_search(g, dfs, sink, conf)
+            yield from _dfs_search(g, dfs, sink, conf)
         else:
             dfs.n_path += 1
 
@@ -152,12 +160,13 @@ def _dfs_search(g, dfs: _DfsInfo, sink: int, conf: WfState):
         conf.restore(snap)
 
 
-def _ec_path_search(g, source: int, sink: int, conf: WfState, dfs: _DfsInfo) -> int:
+def _ec_path_search(g, source: int, sink: int, conf: WfState, dfs: _DfsInfo):
+    """Generator of the DFS's wavefront requests; returns the status."""
     if len(conf.ts) < 0:
         return 0
     dfs.reset()
     dfs.c_path.append(source)
-    _dfs_search(g, dfs, sink, conf)
+    yield from _dfs_search(g, dfs, sink, conf)
     return dfs.status
 
 
@@ -168,7 +177,15 @@ def _hoco_dna(read, pos: int, l: int, rev: int) -> np.ndarray:
     return _NT[win]
 
 
-def _correct_read(read, scg: Scg, max_edist: float, stats: np.ndarray, conf: WfState, dfs: _DfsInfo):
+def _correct_read(read, scg: Scg, max_edist: float, stats: np.ndarray, device):
+    """Correct one read, as a generator of wavefront requests: each
+    yielded ``WfState`` (the read's own, on ``device``) is to be advanced
+    by one wf_ed_core before the generator resumes.  Writes only the
+    read's syncmer arrays and adds to ``stats``, so the reads' generators
+    may run interleaved."""
+    conf = WfState()
+    conf.device = device
+    dfs = _DfsInfo()
     g = scg.utg
     scm_del = scg.scm_db.del_
     w = scg_kmer_size = _kmer_size(scg)
@@ -215,7 +232,7 @@ def _correct_read(read, scg: Scg, max_edist: float, stats: np.ndarray, conf: WfS
                 conf.reset(_hoco_dna(read, beg_pos, l, r))
                 conf.is_ext = True
                 conf.bw = max(int(np.ceil(l * max_edist)), MIN_ERR_BASE)
-                err_c1 = _ec_path_search(g, beg_utg, end_utg, conf, dfs)
+                err_c1 = yield from _ec_path_search(g, beg_utg, end_utg, conf, dfs)
                 if end_utg == -1:
                     stats[0] += 1
                     stats[1 + err_c1] += 1
@@ -268,6 +285,35 @@ def _correct_read(read, scg: Scg, max_edist: float, stats: np.ndarray, conf: WfS
         ) if c_kmer else np.zeros(0, np.uint64)
 
 
+def _correct_reads_lockstep(reads, scg: Scg, max_edist: float, stats: np.ndarray, device):
+    """Run the reads' DFS searches in lockstep: each round collects the one
+    pending wavefront request of every read in flight and advances them
+    all in one ``wf_ed_core_rounds`` call (one launch on a card), then
+    resumes each read; reads that finish make room for the next ones (at
+    most ``EC_INFLIGHT`` in flight)."""
+    from ..kernels.wf_ed import wf_ed_core_rounds
+
+    cap = EC_INFLIGHT or len(reads)
+    todo = iter(reads)
+    live: list = []  # (generator, its pending WfState)
+
+    def admit():
+        while len(live) < cap:
+            r = next(todo, None)
+            if r is None:
+                return
+            gen = _correct_read(r, scg, max_edist, stats, device)
+            st = next(gen, None)
+            if st is not None:
+                live.append((gen, st))
+
+    admit()
+    while live:
+        wf_ed_core_rounds([st for _, st in live], device)
+        live = [(gen, st) for gen, _ in live if (st := next(gen, None)) is not None]
+        admit()
+
+
 def _kmer_size(scg) -> int:
     return scg._kmer_size
 
@@ -279,7 +325,6 @@ def _correct_reads_native(
     process; returns False when unavailable so the caller uses the
     Python loop."""
     from .. import native
-    from ..kernels import wavefront as _wf
 
     # an explicit wavefront backend (device / numpy) must actually drive
     # EC: route through the Python loop + wf_ed_core
@@ -467,9 +512,10 @@ def read_error_correction(
     device="cpu",
 ):
     """Correct the reads in place.  ``device`` is where the wavefront
-    core runs under OATK_TPU_WF_BACKEND=device; each wf_ed_core call of
-    the Python DFS adds one to ``read_error_correction.wf_calls`` (the
-    native batch corrector of the default backend makes none)."""
+    core runs under OATK_TPU_WF_BACKEND=device, which runs the reads'
+    DFS searches in lockstep rounds; each branch extension of the Python
+    DFS adds one to ``read_error_correction.wf_calls`` (the native batch
+    corrector of the default backend makes none)."""
     import time
 
     cpu0, real0 = time.process_time(), time.time()
@@ -482,11 +528,12 @@ def read_error_correction(
         from .consensus import ensure_vtx_seq
 
         ensure_vtx_seq(scg.utg)
-        conf = WfState()
-        conf.device = device
-        dfs = _DfsInfo()
-        for r in read_db.reads:
-            _correct_read(r, scg, max_edist, stats, conf, dfs)
+        if _wf.WF_BACKEND in _wf.DEVICE_BACKENDS:
+            _correct_reads_lockstep(read_db.reads, scg, max_edist, stats, device)
+        else:
+            for r in read_db.reads:
+                for st in _correct_read(r, scg, max_edist, stats, device):
+                    wf_ed_core(st)
         read_db.version += 1  # reads were spliced in place
 
     update_syncmer_db(read_db, scg.scm_db)

@@ -419,7 +419,7 @@ def load_and_extract(
     if _device_hoco_on():
         return None
     if not native.available():
-        raise RuntimeError("the native host library (oatk_tpu/native/*.c) failed to build")
+        raise RuntimeError("the native host library (oatk_tpu_torch/native/*.c) failed to build")
 
     devcount = DevCountState(device) if device_count and not max_data else None
     db = ReadDB(k=w, s=s)

@@ -1,6 +1,6 @@
 """Banded LV89 edit-distance wavefront: the hand-written CUDA kernel, its
-build and binding, its plain PyTorch version, and the single-state
-entry point that error correction calls.
+build and binding, its plain PyTorch versions, and the round driver that
+error correction calls.
 
 Replaces the TPU kernel ``oatk_tpu/kernels/wavefront_pallas.py:
 wf_ed_core_pallas_batch`` and its single-state entry
@@ -10,24 +10,37 @@ with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into the git-ignored
 ``build/kernels/`` directory at the repository root and loaded with
 ctypes.
 
-Contract (the Pallas kernel's, without its length cap): ``ts`` uint8
-``[B, TL]``, ``qs`` uint8 ``[B, QL]``, ``meta`` int32 ``[B, 8]`` = (tl, ql,
-is_ext, bw, score, d0, n, 0), ``k`` int32 ``[B, D_cap]`` holding the
-wavefront in ``k[:, :n]``; returns ``out_meta`` int32 ``[B, 8]`` = (score,
-d0, n, hit, t_end_raw, q_end_raw, err, 0) and ``out_k`` int32 ``[B, D_cap]``
-(the new wavefront in ``[:n]``, -BIG after it).  ``err`` is 0, 1 when the
-input does not fit (n outside [1, D_cap], tl > TL or ql > QL) or 2 when a
-wave would leave [1, D_cap]; ``out_k`` is then all -BIG.  TL and QL may
-be any widths at or above the lengths.
+Two contracts, one launch of one kernel:
 
-:func:`wf_ed_core_batch` takes the plain version only for tensors on the
-CPU.  For CUDA tensors it launches the kernel or raises; nothing falls
-back.  Each launch adds one to ``wf_ed_core_batch.launches``.
+- padded, the Pallas kernel's without its length cap
+  (:func:`wf_ed_core_batch`): ``ts`` uint8 ``[B, TL]``, ``qs`` uint8
+  ``[B, QL]``, ``meta`` int32 ``[B, 8]`` = (tl, ql, is_ext, bw, score, d0,
+  n, 0), ``k`` int32 ``[B, D_cap]`` holding the wavefront in ``k[:, :n]``;
+  returns ``out_meta`` int32 ``[B, 8]`` = (score, d0, n, hit, t_end_raw,
+  q_end_raw, err, 0) and ``out_k`` int32 ``[B, D_cap]`` (the new wavefront
+  in ``[:n]``, -BIG after it).  ``err`` is 0, 1 when the input does not
+  fit (n outside [1, D_cap], tl > TL or ql > QL) or 2 when a wave would
+  leave [1, D_cap]; ``out_k`` is then all -BIG.  TL and QL may be any
+  widths at or above the lengths.
+- ragged (:func:`wf_ed_core_ragged`): one int32 buffer that starts with B
+  descriptors of ``DESC_WORDS`` words (the layout is in ``csrc/wf_ed.cu``)
+  naming, per item, where its meta, k, ts and qs lie in the same buffer
+  and where its out_meta and out_k (of the item's own width S) go in the
+  output buffer.  :func:`wf_ed_core_rounds` packs a list of ``WfState``s
+  this way, so that one upload, one launch and one read-back advance all
+  of them.
+
+The wrappers take the plain versions only for tensors on the CPU.  For
+CUDA tensors they launch the kernel or raise; nothing falls back.  Each
+launch adds one to ``wf_ed_core_batch.launches`` and its item count to
+``wf_ed_core_batch.items``; each round, on any device, adds one to
+``wf_ed_core_rounds.rounds``.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -38,8 +51,15 @@ _SRC = cuda_build.source("wf_ed.cu")
 _SO = f"{cuda_build.SO_DIR}/libwf_ed.so"
 
 BIG = 0x3FFFFFFF
+DESC_WORDS = 12
+# threads per block; the kernel is built for 128 and 256.  chip_smoke.py
+# times a round of 2,000 EC-shaped states at both: on an H100 80GB HBM3
+# (700 W) 0.408-0.428 ms at 256 against 0.669-0.684 ms at 128 (its
+# variant spills, and wide waves keep all eight warps busy)
+THREADS = 256
 # the kernel's own static shared memory, kept free of the dynamic part
 _STATIC_SMEM = 64
+_I32_MAX = (1 << 31) - 1
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -60,14 +80,20 @@ def _load():
             lib.wf_ed_smem_limit.restype = ctypes.c_int
             lib.wf_ed_smem_limit.argtypes = []
             lib.wf_ed_launch.restype = ctypes.c_int
-            lib.wf_ed_launch.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            lib.wf_ed_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
             _lib = lib
     return _lib
 
 
+def _r16(x):
+    return -(-x // 16) * 16
+
+
 def smem_bytes(TL: int, QL: int, D_cap: int) -> int:
-    """Dynamic shared memory of one block on the shared-memory route."""
-    return -(-(8 * D_cap + TL + QL) // 16) * 16
+    """Dynamic shared memory of one block on the shared-memory route: K
+    and E of D_cap words, then ts of TL and qs of QL bytes, each part
+    16-byte aligned."""
+    return _r16(8 * D_cap) + _r16(TL) + _r16(QL)
 
 
 def _smem_limit_of(lib, device: torch.device) -> int:
@@ -79,6 +105,19 @@ def _smem_limit_of(lib, device: torch.device) -> int:
             raise RuntimeError("wf_ed: cannot read the device's shared-memory limit")
         _smem_limit[idx] = lim - _STATIC_SMEM
     return _smem_limit[idx]
+
+
+def _launch(dev, desc, ts, qs, meta, k, out_meta, out_k, scratch, B: int, smem: int) -> None:
+    """One launch on ``dev``'s current stream (pointers as ints or None)."""
+    lib = _load()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.wf_ed_launch(desc, ts, qs, meta, k, out_meta, out_k, scratch, B, smem, THREADS,
+                              stream)
+    if rc != 0:
+        raise RuntimeError(f"wf_ed kernel launch failed: CUDA error {rc}")
+    wf_ed_core_batch.launches += 1
+    wf_ed_core_batch.items += B
 
 
 def _check(ts, qs, meta, k) -> tuple[int, int, int, int]:
@@ -102,11 +141,12 @@ def _check(ts, qs, meta, k) -> tuple[int, int, int, int]:
 
 
 def wf_ed_core_batch(ts, qs, meta, k, out_meta=None, out_k=None, force_global: bool = False):
-    """Run the wavefront core for B independent alignments; returns
-    (out_meta, out_k).  ``out_meta``/``out_k`` may be given as output
-    buffers on the same device.  ``force_global`` takes the kernel's
-    global-memory route even where the shared-memory one fits (to test
-    it)."""
+    """Run the wavefront core for B independent alignments in the padded
+    layout; returns (out_meta, out_k).  ``out_meta``/``out_k`` may be
+    given as output buffers on the same device.  ``force_global`` takes
+    the kernel's global-memory route even where the shared-memory one
+    fits (to test it).  On a card this is the ragged launch with
+    descriptors that stride over the padded rows."""
     B, TL, QL, D_cap = _check(ts, qs, meta, k)
     dev = ts.device
     if dev.type == "cpu":
@@ -130,27 +170,62 @@ def wf_ed_core_batch(ts, qs, meta, k, out_meta=None, out_k=None, force_global: b
         raise ValueError("wf_ed_core_batch: output buffers do not match the inputs")
     if B == 0:
         return out_meta, out_k
-    lib = _load()
     smem = smem_bytes(TL, QL, D_cap)
-    scratch = None
-    if force_global or smem > _smem_limit_of(lib, dev):
-        smem = 0
-        scratch = torch.empty((B, 2, D_cap), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.wf_ed_launch(
-            ts.data_ptr(), qs.data_ptr(), meta.data_ptr(), k.data_ptr(),
+    glob = force_global or smem > _smem_limit_of(_load(), dev)
+    b = np.arange(B, dtype=np.int64)
+    desc = np.zeros((B, DESC_WORDS), np.int64)
+    desc[:, 0], desc[:, 1], desc[:, 2], desc[:, 3] = b * TL, b * QL, b * 8, b * D_cap
+    desc[:, 4], desc[:, 5] = b * 8, b * D_cap
+    desc[:, 6] = b * 2 * D_cap if glob else -1
+    desc[:, 7], desc[:, 8], desc[:, 9] = D_cap, TL, QL
+    if B * max(TL, QL, 2 * D_cap) > _I32_MAX:
+        raise ValueError("wf_ed_core_batch: a row offset does not fit in int32")
+    d_desc = torch.from_numpy(desc.astype(np.int32)).to(dev)
+    scratch = torch.empty((B, 2, D_cap), dtype=torch.int32, device=dev) if glob else None
+    _launch(dev, d_desc.data_ptr(), ts.data_ptr(), qs.data_ptr(), meta.data_ptr(), k.data_ptr(),
             out_meta.data_ptr(), out_k.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            B, TL, QL, D_cap, smem, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"wf_ed kernel launch failed: CUDA error {rc}")
-    wf_ed_core_batch.launches += 1
+            scratch.data_ptr() if scratch is not None else None, B, 0 if glob else smem)
     return out_meta, out_k
 
 
 wf_ed_core_batch.launches = 0
+wf_ed_core_batch.items = 0
+
+
+def _check_ragged(inp, out, B: int) -> None:
+    for name, t in (("inp", inp), ("out", out)):
+        if t.dim() != 1 or t.dtype != torch.int32:
+            raise TypeError(f"wf_ed_core_ragged: {name} must be 1-D int32, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"wf_ed_core_ragged: {name} must be contiguous")
+    if inp.device != out.device:
+        raise ValueError(f"wf_ed_core_ragged: inp on {inp.device}, out on {out.device}")
+    if inp.numel() < B * DESC_WORDS:
+        raise ValueError(f"wf_ed_core_ragged: {inp.numel()} words hold no {B} descriptors")
+
+
+def wf_ed_core_ragged(inp, out, B: int, smem: int, scratch=None):
+    """Run the ragged round of the B items that ``inp`` describes, writing
+    each item's out_meta and out_k into ``out``; returns ``out``.
+    ``smem`` is the dynamic shared memory of a block (at least the need of
+    the largest shared-memory item); ``scratch`` is an int32 device buffer
+    covering every global-route item's ``2 S`` words at its scratch
+    offset, and may be None when no item takes that route.
+    :func:`round_layout` computes both; the CPU path reads neither."""
+    _check_ragged(inp, out, B)
+    dev = inp.device
+    if dev.type == "cpu":
+        return wf_ed_core_ragged_plain(inp, out, B)
+    if dev.type != "cuda":
+        raise ValueError(f"wf_ed_core_ragged: unsupported device {dev}")
+    if B == 0:
+        return out
+    if smem > _smem_limit_of(_load(), dev):
+        raise ValueError(f"wf_ed_core_ragged: {smem} B of shared memory exceed the card's limit")
+    p, q = inp.data_ptr(), out.data_ptr()
+    _launch(dev, p, p, p, p, p, q, q, scratch.data_ptr() if scratch is not None else None, B, smem)
+    return out
 
 
 def _band(tl: int, ql: int, is_ext: bool, bw: int, n: int, nd0: int):
@@ -260,108 +335,216 @@ def wf_ed_core_batch_plain(ts, qs, meta, k):
     return out_meta, out_k
 
 
-def d_cap_for(tl: int, ql: int, n: int, bw: int, is_ext: bool) -> int:
+def wf_ed_core_ragged_plain(inp, out, B: int):
+    """Plain PyTorch version of the ragged contract, on the inputs'
+    device: :func:`_plain_one` on each item at its descriptor's offsets
+    (routes and scratch offsets are the kernel's business and are not
+    read).  Returns ``out``."""
+    _check_ragged(inp, out, B)
+    desc = inp[: B * DESC_WORDS].view(B, DESC_WORDS).tolist()
+    byt = inp.view(torch.uint8)
+    for ts_off, qs_off, meta_off, k_off, om_off, ok_off, _scr, S, TL, QL, *_ in desc:
+        meta = inp[meta_off : meta_off + 8].tolist()
+        om, kb = _plain_one(byt[ts_off : ts_off + TL], byt[qs_off : qs_off + QL], meta,
+                            inp[k_off : k_off + S], TL, QL, S)
+        out[om_off : om_off + 8] = torch.tensor(om, dtype=torch.int32)
+        out[ok_off : ok_off + S] = -BIG
+        if kb is not None:
+            out[ok_off : ok_off + kb.numel()] = kb.to(torch.int32)
+    return out
+
+
+def d_cap_for(tl, ql, n, bw, is_ext):
     """A k width no wave of this alignment can outgrow: after the band a
     wave spans at most [-tl, max(ql, xdb)] (xdb = bw, or |tl-ql| + bw
     when not extending; the band applies only for bw >= 0), and the
-    input wave must fit too.  Rounded up to 32."""
-    xdb = (bw if is_ext else abs(tl - ql) + bw) if bw >= 0 else 0
-    need = max(n, tl + max(ql, xdb) + 1)
-    return -(-need // 32) * 32
+    input wave must fit too.  Rounded up to 32.  Takes numbers or numpy
+    arrays of them."""
+    xdb = np.where(np.asarray(bw) >= 0, np.where(is_ext, bw, np.abs(np.subtract(tl, ql)) + bw), 0)
+    need = np.maximum(n, np.add(tl, np.maximum(ql, xdb)) + 1)
+    cap = -(-need // 32) * 32
+    return int(cap) if np.ndim(cap) == 0 else cap
+
+
+def slot_width(tl, ql, n, bw, is_ext, score):
+    """The k/out_k width S of an item in a ragged round: d_cap_for, or
+    when banded n + 2 * max(1, bw - score + 1), whichever is smaller (a
+    step adds at most 2 diagonals, and the band stops the loop after
+    max(1, bw - score + 1) steps).  Takes numbers or numpy arrays."""
+    cap = d_cap_for(tl, ql, n, bw, is_ext)
+    s = np.where(np.asarray(bw) >= 0,
+                 np.minimum(cap, np.add(n, 2 * np.maximum(1, np.subtract(bw, score) + 1))), cap)
+    return int(s) if np.ndim(s) == 0 else s
+
+
+class RoundLayout(NamedTuple):
+    """Where each item of a ragged round lies: ``desc`` int64
+    ``[B, DESC_WORDS]`` (byte offsets of ts/qs, word offsets of meta, k,
+    out_meta, out_k and scratch, S, TL, QL), ``meta`` int64 ``[B, 8]``,
+    and the round's input, output and scratch words and shared memory."""
+
+    desc: np.ndarray
+    meta: np.ndarray
+    in_words: int
+    out_words: int
+    scratch_words: int
+    smem: int
+
+
+def round_layout(states, smem_limit: int, force_global=False) -> RoundLayout:
+    """The ragged layout of ``states`` (``WfState``s): descriptors, then
+    metas, then per item k, ts and qs at 16-byte aligned offsets; per
+    item out_meta and out_k side by side in the output.  An item whose
+    shared-memory need exceeds ``smem_limit``, or that ``force_global``
+    (a bool, or one per item) names, takes the global route."""
+    B = len(states)
+    meta = np.zeros((B, 8), np.int64)
+    meta[:, :7] = [(len(s.ts), len(s.qs), int(bool(s.is_ext)), int(s.bw), int(s.score),
+                    int(s.wd[0]), len(s.wk)) for s in states]
+    tl, ql, is_ext, bw, score, _d0, n = meta[:, :7].T
+    S = slot_width(tl, ql, n, bw, is_ext != 0, score)
+    kb, tb, qb = _r16(4 * n), _r16(tl), _r16(ql)
+    size = kb + tb + qb
+    start = B * (DESC_WORDS + 8) * 4 + np.cumsum(size) - size
+    in_bytes = B * (DESC_WORDS + 8) * 4 + int(size.sum())
+    osz = 8 + S
+    om_off = np.cumsum(osz) - osz
+    glob = (_r16(8 * S) + tb + qb > smem_limit) | np.asarray(force_global, bool)
+    scr = np.where(glob, 2 * S, 0)
+    desc = np.zeros((B, DESC_WORDS), np.int64)
+    desc[:, 0] = start + kb
+    desc[:, 1] = start + kb + tb
+    desc[:, 2] = B * DESC_WORDS + 8 * np.arange(B)
+    desc[:, 3] = start // 4
+    desc[:, 4] = om_off
+    desc[:, 5] = om_off + 8
+    desc[:, 6] = np.where(glob, np.cumsum(scr) - scr, -1)
+    desc[:, 7], desc[:, 8], desc[:, 9] = S, tl, ql
+    out_words, scratch_words = int(osz.sum()), int(scr.sum())
+    if max(in_bytes, 4 * out_words, 4 * scratch_words) > _I32_MAX:
+        raise ValueError(f"wf_ed: a round of {B} items does not fit int32 offsets")
+    smem = int((_r16(8 * S) + tb + qb)[~glob].max()) if (~glob).any() else 0
+    return RoundLayout(desc, meta, in_bytes // 4, out_words, scratch_words, smem)
+
+
+def pack_round(h32: np.ndarray, lay: RoundLayout, states) -> None:
+    """Write the round's input words into ``h32`` (int32, at least
+    ``lay.in_words`` long)."""
+    B = len(states)
+    h8 = h32.view(np.uint8)
+    h32[: B * DESC_WORDS] = lay.desc.ravel()
+    h32[B * DESC_WORDS : B * (DESC_WORDS + 8)] = lay.meta.ravel()
+    d = lay.desc
+    for st, t0, q0, k0 in zip(states, d[:, 0].tolist(), d[:, 1].tolist(), d[:, 3].tolist()):
+        h32[k0 : k0 + len(st.wk)] = st.wk
+        h8[t0 : t0 + len(st.ts)] = st.ts
+        h8[q0 : q0 + len(st.qs)] = st.qs
+
+
+def unpack_round(o: np.ndarray, lay: RoundLayout, states) -> None:
+    """Set each state from its out_meta and out_k in ``o`` (the round's
+    output words), with the state conversion of the JAX package's
+    ``wf_ed_core_pallas``: ``wd = d0 + arange(n)``, ``t_end`` and
+    ``q_end`` +1 after a hit, else 0.  Raises on an item's ``err``."""
+    om = o[lay.desc[:, 4, None] + np.arange(8)]
+    bad = np.flatnonzero(om[:, 6])
+    if bad.size:
+        i = int(bad[0])
+        raise RuntimeError(
+            f"wf_ed: item {i} of a round of {len(states)} failed (err={int(om[i, 6])}, "
+            f"meta {lay.meta[i, :7].tolist()}, width {int(lay.desc[i, 7])})"
+        )
+    for st, (score, d0, nn, hit, t_raw, q_raw), k0 in zip(
+        states, om[:, :6].tolist(), lay.desc[:, 5].tolist()
+    ):
+        st.score = score
+        st.wd = d0 + np.arange(nn, dtype=np.int64)
+        st.wk = o[k0 : k0 + nn].astype(np.int64)
+        if hit:
+            st.t_end = t_raw + 1
+            st.q_end = q_raw + 1
+        else:
+            st.t_end = 0
+            st.q_end = 0
 
 
 class _Buffers:
     """Reused host (pinned for a card) and device buffers of one device."""
 
-    def __init__(self):
-        self.words = 0
-        self.h_in = self.d_in = self.h_out = self.d_out = None
+    def __init__(self, dev: torch.device):
+        self.dev = dev
+        self.h_in = self.h_out = self.d_in = self.d_out = self.d_scr = None
 
-    def ensure(self, words: int, dev: torch.device):
-        if words <= self.words:
-            return
-        words = max(words, 2 * self.words, 4096)
-        pin = dev.type == "cuda"
-        self.h_in = torch.empty(words, dtype=torch.int32, pin_memory=pin)
-        self.h_out = torch.empty(words, dtype=torch.int32, pin_memory=pin)
-        if pin:
-            self.d_in = torch.empty(words, dtype=torch.int32, device=dev)
-            self.d_out = torch.empty(words, dtype=torch.int32, device=dev)
+    @staticmethod
+    def _grow(t, words: int, device=None, pin: bool = False):
+        have = 0 if t is None else t.numel()
+        if words <= have:
+            return t
+        return torch.empty(max(words, 2 * have, 4096), dtype=torch.int32, device=device,
+                           pin_memory=pin)
+
+    def ensure(self, in_words: int, out_words: int, scr_words: int) -> None:
+        card = self.dev.type == "cuda"
+        self.h_in = self._grow(self.h_in, in_words, pin=card)
+        self.h_out = self._grow(self.h_out, out_words, pin=card)
+        if card:
+            self.d_in = self._grow(self.d_in, in_words, self.dev)
+            self.d_out = self._grow(self.d_out, out_words, self.dev)
+            if scr_words:
+                self.d_scr = self._grow(self.d_scr, scr_words, self.dev)
         else:
             self.d_in, self.d_out = self.h_in, self.h_out
-        self.words = words
 
 
 _bufs: dict[torch.device, _Buffers] = {}
 
 
-def wf_ed_core_device(st) -> None:
-    """Advance the wavefront state ``st`` (a ``kernels.wavefront.WfState``)
-    in place on ``st.device``, with the state conversion of the JAX
-    package's ``wf_ed_core_pallas``: ``wd = d0 + arange(n)``, ``t_end`` and
-    ``q_end`` +1 after a hit, else 0.  No capacity check: ``k`` is sized
-    so that no wave can outgrow it.
+def _device_of(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"wf_ed: device {dev} requested but no CUDA device is available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"wf_ed: unsupported device {dev}")
+    return dev
 
-    ts, qs, meta and k travel in one reused host buffer: one copy to the
-    device, one launch, and one copy of out_meta and out_k[:n_out] back
-    (the read-back synchronises; the DFS needs the result)."""
-    dev = torch.device(st.device)
-    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
-        dev = torch.device("cuda", torch.cuda.current_device())
-    tl, ql, n = len(st.ts), len(st.qs), len(st.wk)
-    bw, is_ext, score = int(st.bw), bool(st.is_ext), int(st.score)
-    D_cap = d_cap_for(tl, ql, n, bw, is_ext)
-    TL = -(-max(tl, 1) // 16) * 16
-    QL = -(-max(ql, 1) // 16) * 16
-    o_k, o_ts = 8, 8 + D_cap
-    o_qs = o_ts + TL // 4
-    words = o_qs + QL // 4
-    # n_out <= n + 2 per step, and a band stops the loop after
-    # max(1, bw - score + 1) steps
-    n_back = min(D_cap, n + 2 * max(1, bw - score + 1)) if bw >= 0 else D_cap
 
+def wf_ed_core_rounds(states, device=None) -> None:
+    """Advance every ``WfState`` of ``states`` in place, in one ragged
+    round on ``device`` (default: the first state's ``device``): one
+    packed upload, one launch, one read-back of each item's out_meta and
+    out_k, one synchronise (the DFS needs the results).  No capacity
+    check: each item's width S is sized so that no wave can outgrow it,
+    and an ``err`` raises."""
+    if not states:
+        return
+    dev = _device_of(states[0].device if device is None else device)
     buf = _bufs.get(dev)
     if buf is None:
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"wf_ed: device {dev} requested but no CUDA device is available")
-        if dev.type not in ("cuda", "cpu"):
-            raise ValueError(f"wf_ed: unsupported device {dev}")
-        buf = _bufs[dev] = _Buffers()
-    buf.ensure(words, dev)
-    h = buf.h_in.numpy()
-    h[:8] = (tl, ql, int(is_ext), bw, score, int(st.wd[0]), n, 0)
-    h[o_k : o_k + n] = st.wk
-    h[o_k + n : o_ts] = -BIG
-    hb = h[o_ts:words].view(np.uint8)
-    hb[:tl] = st.ts
-    hb[TL : TL + ql] = st.qs
-
-    d_in, d_out = buf.d_in, buf.d_out
-    if dev.type == "cuda":
-        d_in[:words].copy_(buf.h_in[:words], non_blocking=True)
-    meta = d_in[:8].view(1, 8)
-    k = d_in[o_k : o_ts].view(1, D_cap)
-    ts = d_in[o_ts:o_qs].view(torch.uint8).view(1, TL)
-    qs = d_in[o_qs:words].view(torch.uint8).view(1, QL)
-    out_meta = d_out[:8].view(1, 8)
-    out_k = d_out[8 : 8 + D_cap].view(1, D_cap)
-    wf_ed_core_batch(ts, qs, meta, k, out_meta, out_k)
-    if dev.type == "cuda":
-        buf.h_out[: 8 + n_back].copy_(d_out[: 8 + n_back], non_blocking=True)
+        buf = _bufs[dev] = _Buffers(dev)
+    card = dev.type == "cuda"
+    # on the CPU every item is computed by the plain version: no routes
+    lay = round_layout(states, _smem_limit_of(_load(), dev) if card else _I32_MAX)
+    buf.ensure(lay.in_words, lay.out_words, lay.scratch_words)
+    pack_round(buf.h_in[: lay.in_words].numpy(), lay, states)
+    d_in, d_out = buf.d_in[: lay.in_words], buf.d_out[: lay.out_words]
+    if card:
+        d_in.copy_(buf.h_in[: lay.in_words], non_blocking=True)
+    wf_ed_core_ragged(d_in, d_out, len(states), lay.smem,
+                      buf.d_scr if lay.scratch_words else None)
+    if card:
+        buf.h_out[: lay.out_words].copy_(d_out, non_blocking=True)
         torch.cuda.current_stream(dev).synchronize()
-    o = buf.h_out.numpy()
-    score, d0, nn, hit, t_raw, q_raw, err = (int(x) for x in o[:7])
-    if err or nn > n_back:
-        raise RuntimeError(
-            f"wf_ed: the wavefront left its buffer (err={err}, n={nn}, D_cap={D_cap}, "
-            f"read back {n_back})"
-        )
-    st.score = score
-    st.wd = d0 + np.arange(nn, dtype=np.int64)
-    st.wk = o[8 : 8 + nn].astype(np.int64)
-    if hit:
-        st.t_end = t_raw + 1
-        st.q_end = q_raw + 1
-    else:
-        st.t_end = 0
-        st.q_end = 0
+    wf_ed_core_rounds.rounds += 1
+    unpack_round(buf.h_out[: lay.out_words].numpy(), lay, states)
+
+
+wf_ed_core_rounds.rounds = 0
+
+
+def wf_ed_core_device(st) -> None:
+    """Advance the wavefront state ``st`` in place on ``st.device``: a
+    round of one item."""
+    wf_ed_core_rounds([st])

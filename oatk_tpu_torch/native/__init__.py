@@ -2,12 +2,11 @@
 
 The host-side data plumbing (FASTA/FASTQ parse + homopolymer
 compression + 2-bit packing) and the native host stages (wavefront,
-consensus, alignment, EC, sorts, graph build) are one small C library
-shared with the JAX package.  Its sources are READ BY PATH from
-``oatk_tpu/native/*.c`` (never imported: importing ``oatk_tpu`` imports
-jax) and compiled on demand with the system compiler into the
-git-ignored ``build/native/`` directory at the repository root, then
-loaded via ctypes.
+consensus, alignment, EC, sorts, graph build) are one small C library.
+Its sources are this package's own copies (``*.c`` beside this file,
+byte-identical to the JAX package's, which a test checks), compiled on
+demand with the system compiler into the git-ignored ``build/native/``
+directory at the repository root, then loaded via ctypes.
 """
 from __future__ import annotations
 
@@ -17,8 +16,8 @@ import subprocess
 
 import numpy as np
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-_SRC_DIR = os.path.join(_REPO, "oatk_tpu", "native")
+_SRC_DIR = os.path.dirname(os.path.abspath(__file__))
+_REPO = os.path.dirname(os.path.dirname(_SRC_DIR))
 _SO = os.path.join(_REPO, "build", "native", "liboatk_native.so")
 _SRCS = [
     os.path.join(_SRC_DIR, "fastx_hoco.c"),

@@ -1,10 +1,12 @@
 """Error correction through the port's ``device`` wavefront backend
-(OATK_TPU_WF_BACKEND=device), on the CPU, where ``wf_ed_core_device`` runs
-the kernel's plain PyTorch version: reads spliced exactly as the JAX
-package's EC through its Pallas backend (interpret mode) splices them,
-and a full syncasm whose GFAs are byte-identical to the JAX package's
-default run.  Every wf_ed_core call of the Python DFS reaches the plain
-version once.  Tolerance: exact."""
+(OATK_TPU_WF_BACKEND=device), on the CPU, where the lockstep rounds run
+the kernel's plain PyTorch version (ragged contract): reads spliced
+exactly as the JAX package's EC through its Pallas backend (interpret
+mode) splices them, and a full syncasm whose GFAs are byte-identical to
+the JAX package's default run.  Every branch extension of the Python DFS
+is one item of one round; the lockstep scheduler gives the sequential
+loop's reads and stats at any number of reads in flight.  Tolerance:
+exact."""
 import numpy as np
 import pytest
 
@@ -17,16 +19,18 @@ from oatk_tpu_torch.kernels import wf_ed as WE
 
 @pytest.fixture
 def count_plain(monkeypatch):
-    """Count calls of the plain version (what a launch is on a card)."""
-    calls = [0]
-    real = WE.wf_ed_core_batch_plain
+    """Count calls of the ragged plain version (what a launch is on a
+    card) and the items they ran."""
+    seen = {"launches": 0, "items": 0}
+    real = WE.wf_ed_core_ragged_plain
 
-    def counted(*a):
-        calls[0] += 1
-        return real(*a)
+    def counted(inp, out, B):
+        seen["launches"] += 1
+        seen["items"] += B
+        return real(inp, out, B)
 
-    monkeypatch.setattr(WE, "wf_ed_core_batch_plain", counted)
-    return calls
+    monkeypatch.setattr(WE, "wf_ed_core_ragged_plain", counted)
+    return seen
 
 
 def test_ec_splices_as_jax_pallas(tmp_path, monkeypatch, count_plain):
@@ -76,7 +80,8 @@ def test_ec_splices_as_jax_pallas(tmp_path, monkeypatch, count_plain):
         assert np.array_equal(r1.k_mer, r2.k_mer)
         assert np.array_equal(r1.m_pos, r2.m_pos)
     calls = TEC.read_error_correction.wf_calls
-    assert calls > 0 and calls == count_plain[0] == j_calls[0]
+    assert calls > 0 and count_plain["items"] == calls == j_calls[0]
+    assert count_plain["launches"] <= calls
 
 
 @pytest.fixture(scope="module")
@@ -115,9 +120,11 @@ def test_syncasm_device_backend_gfa_byte_identical(reads_1p2mbp, tmp_path, monke
             b = f.read()
         assert a.count(b"\nS\t") >= 1
         assert a == b, suf
-    # every EC call of the DFS went through wf_ed_core_device (the
+    # every branch extension of the DFS was an item of a round (the
     # count is a property of the data: 1,159 calls on this set)
-    assert TEC.read_error_correction.wf_calls == count_plain[0] == 1159
+    calls = TEC.read_error_correction.wf_calls
+    assert count_plain["items"] == calls == 1159
+    assert count_plain["launches"] <= calls
 
 
 def test_default_backend_makes_no_wavefront_calls(reads_1p2mbp, tmp_path, monkeypatch, count_plain):
@@ -129,4 +136,100 @@ def test_default_backend_makes_no_wavefront_calls(reads_1p2mbp, tmp_path, monkey
     monkeypatch.setattr(TEC.read_error_correction, "wf_calls", 0)
     T.syncasm([reads_1p2mbp], k=151, s=13, min_k_cov=3, do_ec=True, do_unzip=0,
               out=str(tmp_path / "auto"), device="cpu")
-    assert TEC.read_error_correction.wf_calls == 0 and count_plain[0] == 0
+    assert TEC.read_error_correction.wf_calls == 0 and count_plain["launches"] == 0
+
+
+EC_ARGS = (0.02, 3, 30, 3, 0.35, 0)  # syncasm's EC at c=3
+
+
+def _corrected(mod_ec, fa, load, stage, **kw):
+    """EC of ``mod_ec`` on the 1.2 Mbp set after syncasm's pre-EC steps
+    (``load``/``stage`` build the reads and the graph): each read's
+    (k_mer, m_pos) and the stats vector, caught from ``_correct_read``."""
+    rd, scg = stage(load(fa))
+    caught = []
+    real = mod_ec._correct_read
+
+    def catch(r, scg_, max_edist, stats, *rest):
+        caught.append(stats)
+        return real(r, scg_, max_edist, stats, *rest)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(mod_ec, "_correct_read", catch)
+        mod_ec.read_error_correction(rd, scg, *EC_ARGS, **kw)
+    return [(r.k_mer.copy(), r.m_pos.copy()) for r in rd.reads], caught[0].copy()
+
+
+def _stage(mods):
+    graph, collect, consensus = mods
+
+    def run(rd):
+        scg = graph(rd, collect(rd), 0, 0.0)
+        consensus(rd, scg, hoco_seq=True, save_seq=True, fo=None)
+        return rd, scg
+    return run
+
+
+def _port_ec(fa):
+    from oatk_tpu_torch.asm.consensus import scg_consensus
+    from oatk_tpu_torch.asm.pipeline import load_reads
+    from oatk_tpu_torch.asm.scg import make_syncmer_graph
+    from oatk_tpu_torch.index.syncmer_db import collect_syncmer_db
+
+    return _corrected(TEC, fa, lambda f: load_reads([f], 151, 13, 0, "cpu"),
+                      _stage((make_syncmer_graph, collect_syncmer_db, scg_consensus)), device="cpu")
+
+
+@pytest.fixture(scope="module")
+def ec_references(reads_1p2mbp):
+    """The JAX package's EC on its Pallas backend (interpret mode) and
+    the port's sequential loop (the native C core per request), both
+    with the calls they made."""
+    import oatk_tpu.kernels.wavefront as W
+    import oatk_tpu.kernels.wavefront_pallas as WP
+    from oatk_tpu.asm import ec as JEC
+    from oatk_tpu.asm.consensus import scg_consensus
+    from oatk_tpu.asm.pipeline import load_reads
+    from oatk_tpu.asm.scg import make_syncmer_graph
+    from oatk_tpu.index.syncmer_db import collect_syncmer_db
+
+    real_pallas = WP.wf_ed_core_pallas
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(WP, "wf_ed_core_pallas", lambda st, interpret=True: real_pallas(st, interpret=True))
+        mp.setattr(W, "WF_BACKEND", "pallas")
+        jax_ref = _corrected(JEC, reads_1p2mbp, lambda f: load_reads([f], 151, 13, 0, True),
+                             _stage((make_syncmer_graph, collect_syncmer_db, scg_consensus)))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(TW, "WF_BACKEND", "auto")
+        mp.setattr(TEC, "_correct_reads_native", lambda *a: False)
+        mp.setattr(TEC.read_error_correction, "wf_calls", 0)
+        seq = _port_ec(reads_1p2mbp)
+        seq_calls = TEC.read_error_correction.wf_calls
+    return jax_ref, seq, seq_calls
+
+
+@pytest.mark.parametrize("inflight", [1, 7, None], ids=["1", "7", "all"])
+def test_lockstep_matches_sequential(reads_1p2mbp, ec_references, monkeypatch, count_plain, inflight):
+    """The lockstep scheduler at EC_INFLIGHT 1, 7 and every read: each
+    read's k_mer/m_pos and the stats vector equal the port's sequential
+    loop's and the JAX package's Pallas-backend EC's, with one round per
+    call at 1 and 16 rounds (the longest chain of calls of one read) with
+    every read in flight."""
+    (j_reads, j_stats), (s_reads, s_stats), seq_calls = ec_references
+    monkeypatch.setattr(TW, "WF_BACKEND", "device")
+    monkeypatch.setattr(TEC, "EC_INFLIGHT", inflight)
+    monkeypatch.setattr(TEC.read_error_correction, "wf_calls", 0)
+    monkeypatch.setattr(WE.wf_ed_core_rounds, "rounds", 0)
+    reads, stats = _port_ec(reads_1p2mbp)
+    calls, rounds = TEC.read_error_correction.wf_calls, WE.wf_ed_core_rounds.rounds
+
+    assert len(reads) == len(s_reads) == len(j_reads) > 0
+    for (k, m), (ks, ms), (kj, mj) in zip(reads, s_reads, j_reads):
+        assert np.array_equal(k, ks) and np.array_equal(m, ms)
+        assert np.array_equal(k, kj) and np.array_equal(m, mj)
+    assert np.array_equal(stats, s_stats) and np.array_equal(stats, j_stats)
+    assert stats[2] + stats[7] > 0  # blocks were corrected
+    assert calls == seq_calls == count_plain["items"] == 1159
+    assert rounds == count_plain["launches"]
+    assert rounds == {1: calls, None: 16}.get(inflight, rounds)
+    assert 16 <= rounds <= calls

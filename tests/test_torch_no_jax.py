@@ -99,3 +99,69 @@ def test_no_jax_import_in_sources():
                              "from oatk_tpu.", "import oatk_tpu ")) or s == "import oatk_tpu":
                 bad.append(f"{p}:{i}: {s}")
     assert not bad, bad
+
+
+def _code_strings(path: pathlib.Path):
+    """(line, value) of every string constant of a Python source that is
+    code: docstrings and the values of ``"replaces"`` keys (the kernels
+    line names the TPU kernel each CUDA kernel replaces) are left out."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    skip = set()
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant):
+            skip.add(id(body[0].value))
+        if isinstance(node, ast.Dict):
+            for k, v in zip(node.keys, node.values):
+                if isinstance(k, ast.Constant) and k.value == "replaces":
+                    skip.add(id(v))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Constant) and isinstance(node.value, str) and id(node) not in skip:
+            yield node.lineno, node.value
+
+
+def test_no_path_into_jax_package():
+    """No source of the port and no line of chip_smoke.py builds a path
+    into the JAX package's tree: no string of code has ``oatk_tpu`` as a
+    path component (comments, docstrings and the kernels line's
+    ``replaces`` strings may name the TPU kernels' files)."""
+    srcs = sorted((REPO / "oatk_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = []
+    for p in srcs:
+        for line, s in _code_strings(p):
+            if "oatk_tpu" in s.replace("\\", "/").split("/"):
+                bad.append(f"{p.relative_to(REPO)}:{line}: {s!r}")
+    assert not bad, bad
+
+
+def test_path_check_sees_a_path_into_jax_package(tmp_path):
+    """The check above finds both spellings of such a path."""
+    p = tmp_path / "m.py"
+    p.write_text('"""doc: oatk_tpu/native"""\nimport os\n'
+                 'a = os.path.join(R, "oatk_tpu", "native")\nb = f"{R}/oatk_tpu/native/x.c"\n'
+                 'k = {"replaces": "oatk_tpu/kernels/x.py:1"}\n')
+    hits = [line for line, s in _code_strings(p) if "oatk_tpu" in s.split("/")]
+    assert hits == [3, 4]
+
+
+def test_native_sources_match_jax_package():
+    """The port builds its native library from its own copies of the C
+    sources; each equals its twin in the JAX package byte for byte, so
+    the two libraries cannot drift apart unnoticed.  The one difference
+    allowed: a citation of the upstream C sources names them relative to
+    the reference tree (``reference/x.c``), without the absolute
+    directory the twin's comment carries."""
+    import re
+
+    import oatk_tpu_torch.native as N
+
+    mine = sorted(pathlib.Path(s) for s in N._SRCS)
+    assert mine and all(p.parent == REPO / "oatk_tpu_torch" / "native" for p in mine)
+    assert sorted(p.name for p in mine) == sorted(
+        p.name for p in (REPO / "oatk_tpu_torch" / "native").glob("*.c"))
+    for p in mine:
+        twin = REPO / "oatk_tpu" / "native" / p.name
+        assert p.read_bytes() == re.sub(rb"/\w+/reference/", b"reference/", twin.read_bytes()), p.name

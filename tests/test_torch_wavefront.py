@@ -27,9 +27,11 @@ def _state(mod, ts, qs, is_ext, bw, device="cpu"):
     return st
 
 
-def _host_core(st):
-    """The JAX package's host core: wf_step until an end or the band."""
-    import oatk_tpu.kernels.wavefront as W
+def _host_core(st, W=None):
+    """The JAX package's host core (or the port's copy of it, ``W=TW``,
+    where JAX is absent): wf_step until an end or the band."""
+    if W is None:
+        import oatk_tpu.kernels.wavefront as W
 
     t = q = -1
     while True:
@@ -293,6 +295,114 @@ def test_cuda_state_without_card_raises(monkeypatch):
         WE.wf_ed_core_device(st)
 
 
+def _mixed_round(rng):
+    """One round as EC's lockstep scheduler hands it over, and more: fresh
+    banded and unbanded states of very different lengths (tl 5 to 400),
+    and restarts from the host core's state after a prefix of the query,
+    with waves of up to ~60 diagonals.  Needs no JAX (the card's tests
+    use it too)."""
+    states = []
+    for tl, ql, is_ext, bw in [(5, 7, True, 6), (400, 380, True, 8), (40, 120, False, -1),
+                               (250, 260, False, 6), (120, 60, True, -1), (300, 330, True, 12),
+                               (17, 16, False, 3)]:
+        ts, qs = _long_case(rng, tl, ql, 0.03, True)
+        states.append(_state(TW, ts, qs, is_ext, bw))
+    for tl, bw, mut in [(300, -1, 0.2), (350, 40, 0.1), (200, 30, 0.15), (150, -1, 0.25)]:
+        ts, full = _long_case(rng, tl, tl + 20, mut, True)
+        st = _state(TW, ts, full[: tl // 2], True, bw)
+        _host_core(st, TW)
+        st.qs = full
+        states.append(st)
+    return states
+
+
+def _plain_round(states, force_global):
+    lay = WE.round_layout(states, 48 * 1024, force_global)
+    h = np.zeros(lay.in_words, np.int32)
+    WE.pack_round(h, lay, states)
+    inp = torch.from_numpy(h)
+    out = torch.zeros(lay.out_words, dtype=torch.int32)
+    WE.wf_ed_core_ragged(inp, out, len(states), lay.smem)
+    return lay, inp, out
+
+
+def test_ragged_plain_matches_pallas_batch():
+    """One mixed ragged round through the wrapper on the CPU (the ragged
+    plain version; one item named for the global route) against the JAX
+    package's padded Pallas kernel (interpret mode): exact over
+    out_meta's six contract columns and out_k[:n]."""
+    import jax.numpy as jnp
+
+    from oatk_tpu.kernels.wavefront_pallas import wf_ed_core_pallas_batch
+
+    rng = np.random.default_rng(31)
+    states = _mixed_round(rng)
+    B = len(states)
+    glob = np.zeros(B, bool)
+    glob[1] = True
+    before = WE.wf_ed_core_batch.launches
+    lay, _inp, out = _plain_round(states, glob)
+    assert WE.wf_ed_core_batch.launches == before  # the plain version is no launch
+    assert (lay.desc[:, 6] >= 0).tolist() == glob.tolist()
+    assert max(len(s.wk) for s in states) >= 50
+
+    TL = -(-(max(len(s.ts) for s in states) + 1) // 128) * 128
+    QL = -(-(max(len(s.qs) for s in states) + 1) // 128) * 128
+    D_cap = TL + QL + 4
+    ts = np.zeros((B, TL), np.uint8)
+    qs = np.zeros((B, QL), np.uint8)
+    meta = np.zeros((B, 8), np.int32)
+    k = np.full((B, D_cap), -WE.BIG, np.int32)
+    for b, st in enumerate(states):
+        ts[b, : len(st.ts)] = st.ts
+        qs[b, : len(st.qs)] = st.qs
+        meta[b] = lay.meta[b]
+        k[b, : len(st.wk)] = st.wk
+    om_j, ok_j = wf_ed_core_pallas_batch(
+        jnp.asarray(ts), jnp.asarray(qs), jnp.asarray(meta), jnp.asarray(k),
+        TL=TL, QL=QL, D_cap=D_cap, interpret=True,
+    )
+    om_j, ok_j = np.asarray(om_j), np.asarray(ok_j)
+    o = out.numpy()
+    for b in range(B):
+        om = o[lay.desc[b, 4] : lay.desc[b, 4] + 8]
+        n = om[2]
+        assert np.array_equal(om[:6], om_j[b, :6]) and om[6] == 0, b
+        ok = o[lay.desc[b, 5] : lay.desc[b, 5] + lay.desc[b, 7]]
+        assert np.array_equal(ok[:n], ok_j[b, :n]) and (ok[n:] == -WE.BIG).all(), b
+    assert om_j[:, 3].any() and not om_j[:, 3].all()  # hits and band exits both occur
+
+
+def test_rounds_match_single_calls():
+    """wf_ed_core_rounds advances every state of a round as one
+    wf_ed_core_device call per state does, and counts one round."""
+    rng = np.random.default_rng(32)
+    a = _mixed_round(rng)
+    b = [_state(TW, s.ts, s.qs, s.is_ext, s.bw) for s in a]
+    for x, y in zip(a, b):
+        y.score, y.t_end, y.q_end, y.wd, y.wk = x.score, x.t_end, x.q_end, x.wd.copy(), x.wk.copy()
+    before = WE.wf_ed_core_rounds.rounds
+    WE.wf_ed_core_rounds(a, "cpu")
+    assert WE.wf_ed_core_rounds.rounds == before + 1
+    for x, y in zip(a, b):
+        WE.wf_ed_core_device(y)
+        _same(x, y)
+
+
+def test_slot_width_holds_every_wave():
+    """The ragged slot S = min(d_cap, n + 2 max(1, bw - score + 1)) is
+    never outgrown: a round whose every width is S reports no err, and S
+    matches d_cap_for where unbanded."""
+    rng = np.random.default_rng(33)
+    states = _mixed_round(rng)
+    lay, _inp, out = _plain_round(states, False)
+    o = out.numpy()
+    assert not o[lay.desc[:, 4] + 6].any()
+    for st, S in zip(states, lay.desc[:, 7]):
+        d = WE.d_cap_for(len(st.ts), len(st.qs), len(st.wk), st.bw, st.is_ext)
+        assert S == (d if st.bw < 0 else min(d, len(st.wk) + 2 * max(1, st.bw - st.score + 1)))
+
+
 def test_d_cap_bounds_every_wave():
     """d_cap_for holds the widest band: unbanded, a wave spans [-tl, ql]."""
     assert WE.d_cap_for(100, 200, 1, -1, True) >= 100 + 200 + 1
@@ -342,3 +452,44 @@ def test_cuda_device_call_matches_cpu(tl, ql, mut, indel):
             assert WE.wf_ed_core_batch.launches == before + 1
             WE.wf_ed_core_device(b)
             _same(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threads", [128, 256])
+@pytest.mark.parametrize("route", ["shared", "global", "mixed"])
+def test_cuda_ragged_round_matches_plain(route, threads, monkeypatch):
+    """One ragged round on the card against the ragged plain version on
+    the same card buffer, exactly over the whole output, on each route
+    and block width; and the round driver on the card against the CPU."""
+    _cuda()
+    monkeypatch.setattr(WE, "THREADS", threads)
+    rng = np.random.default_rng(41)
+    states = _mixed_round(rng)
+    for tl, ql, mut, indel in LONG[:3]:
+        ts, qs = _long_case(rng, tl, ql, mut, indel)
+        states.append(_state(TW, ts, qs, True, max(int(np.ceil(tl * 0.02)), 6)))
+    B = len(states)
+    glob = {"shared": False, "global": True, "mixed": np.arange(B) % 2 == 1}[route]
+    lim = WE._smem_limit_of(WE._load(), torch.device("cuda", torch.cuda.current_device()))
+    lay = WE.round_layout(states, lim, glob)
+    h = np.zeros(lay.in_words, np.int32)
+    WE.pack_round(h, lay, states)
+    inp = torch.from_numpy(h).cuda()
+    out = torch.zeros(lay.out_words, dtype=torch.int32, device="cuda")
+    scratch = torch.empty(max(1, lay.scratch_words), dtype=torch.int32, device="cuda")
+    before = (WE.wf_ed_core_batch.launches, WE.wf_ed_core_batch.items)
+    WE.wf_ed_core_ragged(inp, out, B, lay.smem, scratch)
+    torch.cuda.synchronize()
+    assert (WE.wf_ed_core_batch.launches, WE.wf_ed_core_batch.items) == (before[0] + 1, before[1] + B)
+    out2 = WE.wf_ed_core_ragged_plain(inp, torch.zeros_like(out), B)
+    assert torch.equal(out, out2)
+
+    cpu = [_state(TW, s.ts, s.qs, s.is_ext, s.bw) for s in states]
+    card = [_state(TW, s.ts, s.qs, s.is_ext, s.bw, device="cuda") for s in states]
+    for x, y, z in zip(states, cpu, card):
+        for t in (y, z):
+            t.score, t.t_end, t.q_end, t.wd, t.wk = x.score, x.t_end, x.q_end, x.wd.copy(), x.wk.copy()
+    WE.wf_ed_core_rounds(cpu, "cpu")
+    WE.wf_ed_core_rounds(card, "cuda")
+    for y, z in zip(cpu, card):
+        _same(y, z)
