@@ -15,7 +15,9 @@ Phases (any failure makes the exit code non-zero):
 3. the selection kernel against its plain PyTorch version, both on the
    card, exactly: one main-path chunk at k=1001/s=31 (2048 rows x 16384
    positions = 32 Mi positions, ragged read ends, Ns at 1e-3) and small
-   (w, s) cases; median times by CUDA events;
+   (w, s) cases up to k=20001, each with at least 20 selections where its
+   rows allow them; median times by CUDA events, the tile, shared memory
+   per block and blocks per SM of each case;
 4. the wavefront kernel against its plain version on the card, exactly
    over the whole output state: 2,000 single states shaped like error
    correction's calls at k=1001 (tl up to 5,700, ql up to 6,600, EC's
@@ -70,8 +72,13 @@ Phases (any failure makes the exit code non-zero):
 The last two lines of standard output are the card line and a JSON
 object ``{"ok": true, "device": {...}}``; the line before them lists the
 kernels with their launch counts, times and bounds (the larger of the
-bytes each must move over 3.35 TB/s and its operations over 67 T/s, the
-H100 SXM's memory rate and non-tensor rate).  Without a CUDA device the
+bytes each must move over 3.35 TB/s, the H100 SXM's memory rate, and its
+operations over a compute rate: for the selection kernel the 32-bit
+instructions of the function's own work on this run's input (``K1_OPS``),
+each at its pipe's rate on 132 SMs at the card's maximum SM clock; for
+the wavefront kernel its cell operations over 67 T/s).  The short
+card loop for the selection kernel alone is
+``python3 -c 'import chip_smoke as c; c.kernel_loop()'``.  Without a CUDA device the
 script prints no result and exits with code 2.  Datasets are generated
 from fixed seeds into ``build/chip_smoke/`` (git-ignored).
 """
@@ -99,11 +106,48 @@ SMALL_CASES = [
     (151, 13, 8, 9000),
     (1001, 31, 8, 16384),
     (1001, 31, 4, 900),
+    # k above the shared-memory limit of a tile-plus-halo design
+    (6001, 31, 8, 40000),
+    (9001, 31, 8, 54000),
+    (20001, 31, 8, 100000),
 ]
+MIN_SELECTED = 20  # selections each case must hold where its rows are 2w long
 
 
 HBM_BPS = 3.35e12  # H100 SXM device memory, bytes/s
 ALU_OPS = 67e12    # H100 SXM non-tensor rate, operations/s
+SMS = 132          # H100 SXM
+# 32-bit instructions per SM and clock (compute capability 9.0): the ALU
+# pipe and the FMA pipe's IMAD each take 64 lanes; four schedulers issue
+# one warp instruction each, 128 lanes in all
+ALU_LANES, IMAD_LANES, ISSUE_LANES = 64, 64, 128
+
+# The selection function's own work, for its bound: 32-bit instructions
+# (ALU pipe only, IMAD only, either pipe) per unit of the data that needs
+# them.  A 64-bit value is two words: a u64 compare is two ISETP, a u64
+# min two ISETP and two SEL.  Loop control, addressing, loads and stores
+# are not counted, nor is work the data does not need: an s-mer that
+# holds a code >= 4 is the sentinel unhashed, and an output whose w codes
+# hold one is 0 without its rules.
+K1_OPS = {
+    # every column: the code >= 4 test, the N-count prefix sum (an add)
+    # and the test that the column's s-mer holds no code >= 4
+    "column": (2, 0, 1),
+    # every s-mer with no code >= 4: roll the forward code (funnel shift,
+    # mask, shift-add) and its reverse complement (funnel shift, shift,
+    # complement, shift-add): 5 + 2; canonical min, palindrome test and
+    # sentinel select: 8; the Thomas-Wang hash: three shift-xor steps of
+    # four, three multiplies by a constant as an IMAD pair plus the mask,
+    # the first step's shift, add with carry and mask: 19 + 6 + 1; the
+    # sliding minimum (prefix, suffix and their join, three u64 mins): 12
+    "smer": (44, 6, 3),
+    # every output: the N test (two prefix counts compared)
+    "output": (1, 0, 0),
+    # every output whose w codes hold no code >= 4: Bq1 and D (two u64
+    # mins) 8, the open rule 4, case 2 4, case 3 9, the close rule 1,
+    # joining the predicates 3, the code (two SEL) 2
+    "clean": (31, 0, 0),
+}
 
 WF_STATES = 2000   # single states with the measured EC call distribution
 WF_BATCH = 256     # one batched launch
@@ -161,46 +205,144 @@ def median_ms(fn, reps: int) -> float:
     return times[len(times) // 2]
 
 
+def sm_clock_mhz() -> float:
+    """The card's maximum SM clock, MHz (nvidia-smi clocks.max.sm)."""
+    r = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return float(r.stdout.split()[0])
+
+
+def sass_inner_loops(so: str, kernel: str) -> list:
+    """Innermost loops of ``kernel`` in the SASS of ``so`` (``cuobjdump
+    -sass``): for each backward branch whose span holds no other one, the
+    opcodes from its target to the branch."""
+    import re
+    import shutil
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([exe, "-sass", so], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    body = next(f for f in text.split("Function : ")[1:] if kernel in f.split("\n", 1)[0])
+    ins = [(int(m.group(1), 16), m.group(2).strip())
+           for m in re.finditer(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)]
+    at = {a: i for i, (a, _) in enumerate(ins)}
+    loops = []
+    for i, (a, op) in enumerate(ins):
+        m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+        if m and int(m.group(1), 16) <= a and int(m.group(1), 16) in at:
+            loops.append((at[int(m.group(1), 16)], i))
+    inner = [(b, e) for b, e in loops
+             if not any(b <= b2 and e2 <= e and (b2, e2) != (b, e) for b2, e2 in loops)]
+    return [[op for _, op in ins[b:e + 1]] for b, e in inner]
+
+
+def k1_instructions() -> tuple[int, int]:
+    """SASS instructions of the selection kernel's two per-position loop
+    bodies, a diagnostic beside the bound (they hold the design's own
+    overhead): the per-column pass (the one that loads a code byte and
+    stores to shared memory) and the per-output rules (the one that
+    stores to global memory); each body is one column or one output."""
+    from oatk_tpu_torch.kernels import syncmer_select as SS
+
+    SS._load()  # builds the library if this process has not
+    loops = sass_inner_loops(SS._SO, "syncmer_select_kernel")
+    col = max((lp for lp in loops if any("LDG" in op and "U8" in op for op in lp)
+               and any(" STS" in f" {op}" for op in lp)), key=len)
+    rules = max((lp for lp in loops if any("STG" in op for op in lp)), key=len)
+    return len(col), len(rules)
+
+
+def k1_work(x, w: int, s: int) -> tuple[dict, tuple, float]:
+    """The selection function's work on ``x`` [B, 1+L+w+2]: how many of
+    each unit of ``K1_OPS`` this input holds, the instructions (ALU, IMAD,
+    either pipe) they need, and the least SM clocks that takes: the
+    larger of each pipe's share over its lanes and all of them over the
+    issue rate."""
+    from oatk_tpu_torch.kernels.syncmer_select import _window_has
+
+    B, Lp = x.shape
+    L = Lp - w - 3
+    inv = x >= 4
+    n = dict(column=B * Lp, smer=int((~_window_has(inv, s)).sum()), output=B * L,
+             clean=int((~_window_has(inv, w)[:, 1:1 + L]).sum()))
+    ins = tuple(sum(n[u] * K1_OPS[u][i] for u in n) for i in range(3))
+    clocks = max(ins[0] / ALU_LANES, ins[1] / IMAD_LANES, sum(ins) / ISSUE_LANES)
+    return n, ins, clocks
+
+
 def phase_kernel(device, main_shape=(2048, 16384), small=SMALL_CASES, reps=10) -> dict:
-    """Kernel vs plain version on the same card tensors, exactly."""
+    """Kernel vs plain version on the same card tensors, exactly, each
+    case with at least MIN_SELECTED selections where its rows are 2w
+    long; per case the tile, shared memory per block and blocks per SM,
+    and the bound: the larger of the bytes over HBM_BPS and the
+    function's own instructions on this input (``k1_work``) over SMS at
+    the card's maximum SM clock."""
     import numpy as np
     import torch
 
+    from oatk_tpu_torch.kernels import syncmer_select as SS
     from oatk_tpu_torch.kernels.syncmer_select import syncmer_select, syncmer_select_plain
 
-    rng = np.random.default_rng(20261016)
-    worst = 0
+    n_col, n_rules = k1_instructions()
+    clk = sm_clock_mhz()
+    log(f"[kernel] bound: the function's own 32-bit instructions (K1_OPS, per unit as ALU/IMAD/"
+        f"either: {K1_OPS}) at {ALU_LANES}/{IMAD_LANES}/{ISSUE_LANES} lanes per SM and clock "
+        f"(ALU, IMAD, issue) x {SMS} SMs x {clk:.0f} MHz (clocks.max.sm); diagnostic: the "
+        f"kernel's SASS holds {n_col} instructions in its per-column body and {n_rules} in its "
+        f"per-output body")
     ok = True
-    cases = [(K_MAIN, S_MAIN, *main_shape, 1e-3)] + [(w, s, B, L, 1e-3) for w, s, B, L in small]
+    worst = 0
+    # Ns at 1e-3, or 0.3 per window where that is rarer (large k)
+    cases = [(K_MAIN, S_MAIN, *main_shape, 1e-3)] + [(w, s, B, L, min(1e-3, 0.3 / w))
+                                                      for w, s, B, L in small]
     res = {}
     for i, (w, s, B, L, nr) in enumerate(cases):
-        x = make_select_input(rng, B, L, w, nr, device)
+        x = make_select_input(np.random.default_rng((20261016, i)), B, L, w, nr, device)
         got = syncmer_select(x, w, s)
         torch.cuda.synchronize()
         ref = syncmer_select_plain(x, w, s)
         err = int((got.long() - ref.long()).abs().max()) if got.numel() else 0
         n_sel = int((ref != 0).sum())
+        need = MIN_SELECTED if L >= 2 * w else 0
         same = bool(torch.equal(got, ref))
-        ok &= same and (n_sel > 0 or i > 0)
+        ok &= same and n_sel >= need
         worst = max(worst, err)
         ms = median_ms(lambda: syncmer_select(x, w, s), reps)
         plain_ms = median_ms(lambda: syncmer_select_plain(x, w, s), max(3, reps // 3))
-        log(f"[kernel] w={w} s={s} B={B} L={L}: equal={same} max_abs_err={err} "
-            f"n_sel={n_sel} kernel {ms:.4f} ms plain {plain_ms:.4f} ms (median, CUDA events)")
+        tile = SS.choose_tile(L, w, s)
+        smem, blocks = SS.occupancy(tile, w, s)
+        # each input byte read once, each int32 code written once
+        nbytes = x.numel() + 4 * B * L
+        units, ins, clocks = k1_work(x, w, s)
+        ops_s = clocks / (SMS * clk * 1e6)
+        bound_ms = 1000 * max(nbytes / HBM_BPS, ops_s)
+        bound_by = "bytes" if nbytes / HBM_BPS >= ops_s else "operations"
+        log(f"[kernel] w={w} s={s} B={B} L={L}: equal={same} max_abs_err={err} n_sel={n_sel} "
+            f"(at least {need}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms (median, CUDA events); "
+            f"tile {tile} R {SS.run_length(tile, w, s)} smem {smem} B/block, {blocks} blocks/SM")
+        log(f"[kernel] w={w} s={s} B={B} L={L}: bound {bound_ms:.4f} ms by {bound_by}: {nbytes} B "
+            f"= {1000 * nbytes / HBM_BPS:.4f} ms; {units} -> ALU {ins[0]} IMAD {ins[1]} either "
+            f"{ins[2]} instructions = {clocks:.0f} SM clocks = {1000 * ops_s:.4f} ms; "
+            f"{100 * bound_ms / ms:.1f}% of it")
         if i == 0:
-            # each input byte read once, each int32 code written once; at
-            # least ten operations a position (the rolling s-mer, its
-            # window minimum, the closed test)
-            nbytes, ops = x.numel() + 4 * B * L, 10 * B * L
-            res["ms"], res["plain_ms"] = ms, plain_ms
-            res["bound_ms"] = 1000 * max(nbytes / HBM_BPS, ops / ALU_OPS)
-            res["bound_by"] = "bytes" if nbytes / HBM_BPS >= ops / ALU_OPS else "operations"
-            log(f"[kernel] bound at the main chunk: {nbytes} B moved, {ops} operations: "
-                f"{res['bound_ms']:.4f} ms by {res['bound_by']}")
+            res.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
         del x, got, ref
     res["max_abs_err"] = worst
     res["ok"] = ok
     return res
+
+
+def kernel_loop() -> int:
+    """The short card loop: build the selection kernel and run phase 3
+    alone (``python3 -c 'import chip_smoke as c; c.kernel_loop()'``)."""
+    from oatk_tpu_torch.kernels import syncmer_select as SS
+
+    build_kernels({"syncmer_select.cu": SS})
+    r = phase_kernel("cuda")
+    log(f"[kernel] ok={r['ok']} {json.dumps({k: v for k, v in r.items() if k != 'ok'})}")
+    return 0 if r["ok"] else 1
 
 
 def event_ms(fn) -> float:

@@ -13,6 +13,12 @@ Contract (same as the Pallas kernel): ``codes_padded`` is
 the right pad are 5); the result is int32 ``[B, L]`` in {0 none,
 1 open, 2 close}.
 
+Any w runs: a block's shared memory grows with its tile, not with w
+(:func:`run_length` keeps the run table near ``THREADS`` entries), and
+:func:`choose_tile` takes the largest tile up to ``TILE`` of which the
+CUDA runtime fits ``MIN_BLOCKS`` blocks on an SM (PERF.md has the tiles
+measured at k=1001).
+
 :func:`syncmer_select` takes the plain version only for a tensor on the
 CPU.  For a CUDA tensor it launches the kernel or raises; nothing falls
 back.  Each launch adds one to ``syncmer_select.launches``.
@@ -20,6 +26,7 @@ back.  Each launch adds one to ``syncmer_select.launches``.
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -30,7 +37,9 @@ _SRC = cuda_build.source("syncmer_select.cu")
 _SO = f"{cuda_build.SO_DIR}/libsyncmer_select.so"
 
 I64MAX = (1 << 63) - 1
-MAX_TILE = 2048
+THREADS = 256  # kThreads of csrc/syncmer_select.cu
+TILE = 4096  # largest tile (outputs per block) that choose_tile considers
+MIN_BLOCKS = 2  # blocks per SM that choose_tile asks for
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -51,10 +60,54 @@ def _load():
             lib.syncmer_select_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.syncmer_select_smem_bytes.restype = ctypes.c_size_t
+            lib.syncmer_select_smem_bytes.argtypes = [ctypes.c_int] * 3
+            lib.syncmer_select_occupancy.restype = ctypes.c_int
+            lib.syncmer_select_occupancy.argtypes = [
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
             ]
             _lib = lib
     return _lib
+
+
+def run_length(tile: int, w: int, s: int) -> int:
+    """Columns per run R of a tile's extent (tile + w + 4 columns): about
+    one run per thread, so the run table stays near THREADS entries for
+    every w, and at most W2 = w - s - 1, where the run decomposition of
+    the sliding minimum is exact."""
+    R = -(-(tile + w + 4) // THREADS)
+    return min(R, w - s - 1) if w - s - 1 >= 1 else R
+
+
+def occupancy(tile: int, w: int, s: int) -> tuple[int, int]:
+    """(shared memory bytes per block, blocks per SM) of the kernel at
+    this tile and w, as the CUDA runtime reports them."""
+    lib = _load()
+    R = run_length(tile, w, s)
+    blocks = ctypes.c_int(0)
+    rc = lib.syncmer_select_occupancy(tile, w, R, ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"syncmer_select occupancy query failed: CUDA error {rc}")
+    return int(lib.syncmer_select_smem_bytes(tile, w, R)), blocks.value
+
+
+def choose_tile(L: int, w: int, s: int) -> int:
+    """The largest tile up to TILE (and the row length), in steps of 256,
+    at which MIN_BLOCKS blocks fit on an SM (at 256 a block needs about
+    10 KB): a larger tile rehashes less halo per output, but shared
+    memory grows with the tile (not with w), and fewer blocks per SM hide
+    less latency."""
+    return _largest_tile(min(TILE, max(32, -(-L // 32) * 32)), w, s)
+
+
+@functools.lru_cache(maxsize=None)
+def _largest_tile(cap: int, w: int, s: int) -> int:
+    tile = cap
+    while tile > 256 and occupancy(tile, w, s)[1] < MIN_BLOCKS:
+        tile -= 256
+    return tile
 
 
 def _check(codes_padded: torch.Tensor, w: int, s: int) -> int:
@@ -85,11 +138,12 @@ def syncmer_select(codes_padded: torch.Tensor, w: int, s: int) -> torch.Tensor:
     out = torch.empty((B, L), dtype=torch.int32, device=codes_padded.device)
     if out.numel() == 0:
         return out  # nothing to launch
-    tile = min(MAX_TILE, max(32, -(-L // 32) * 32))
     with torch.cuda.device(codes_padded.device):
+        tile = choose_tile(L, w, s)
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.syncmer_select_launch(
-            codes_padded.data_ptr(), out.data_ptr(), B, Lp, L, w, s, tile, stream
+            codes_padded.data_ptr(), out.data_ptr(), B, Lp, L, w, s, tile,
+            run_length(tile, w, s), stream,
         )
     if rc != 0:
         raise RuntimeError(f"syncmer_select kernel launch failed: CUDA error {rc}")

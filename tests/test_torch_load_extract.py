@@ -261,6 +261,33 @@ def test_count_knob(tmp_path, reads, monkeypatch, capsys, value, device_count):
     assert (warned in err) == (value == "bogus")
 
 
+@pytest.mark.parametrize("name", ["OATK_TPU_STAGE_SHARDS", "OATK_TPU_SHARDED_IMPL",
+                                  "OATK_TPU_SHARD_CAP_SCALE", None])
+def test_multi_device_settings_warn_once(tmp_path, reads, monkeypatch, capsys, name):
+    """A multi-device setting, which the port does not read yet, warns once
+    on stderr, and the loaded ReadDB is the one of a run without it."""
+    from oatk_tpu_torch.asm import pipeline as TP
+
+    fa = tmp_path / "r.fa"
+    _write_fa(str(fa), reads[:10])
+    for n in TP.MULTI_DEVICE_SETTINGS:
+        monkeypatch.delenv(n, raising=False)
+    plain = TP.load_reads([str(fa)], W, S, device="cpu")
+    capsys.readouterr()
+    monkeypatch.setattr(TP, "_multi_device_warned", False)
+    if name is not None:
+        monkeypatch.setenv(name, "2")
+    dbs = [TP.load_reads([str(fa)], W, S, device="cpu") for _ in range(2)]
+    err = capsys.readouterr().err
+    warning = "does not read the multi-device settings yet"
+    assert err.count(warning) == (name is not None)
+    if name is not None:
+        assert name in err
+    for db in dbs:
+        for a, b in zip(plain.reads, db.reads):
+            assert np.array_equal(a.k_mer, b.k_mer) and np.array_equal(a.m_pos, b.m_pos)
+
+
 def test_device_hoco_route(tmp_path, reads, monkeypatch):
     """OATK_TPU_DEVICE_HOCO=1: load_and_extract steps aside, and
     extract_all_syncmers uploads raw ASCII and runs the hoco phase on the
