@@ -67,7 +67,24 @@ Phases (any failure makes the exit code non-zero):
     the host loop on the same inputs and iteration counts at most 2
     apart; whether ``.utg.final.gfa`` equals phase 6's is reported;
 14. ``syncasm --cpu`` (host oracle extraction) through its CLI at 1.2 Mbp
-    with ``--device cuda``: GFAs equal to phase 5's card GFAs.
+    with ``--device cuda``: GFAs equal to phase 5's card GFAs;
+15. ``syncasm --shards 1`` through its CLI at 110 Mbp (the sharded loader
+    on a one-card mesh) on the card and with ``--device cpu``: both GFAs
+    equal to phase 6's, the selection kernel launched; wall, load and
+    collect_db beside phase 6's, peak device memory;
+16. in-process meshes of 4 and 5 shards on ``cuda:0`` at 110 Mbp
+    (``load_and_extract_sharded`` + ``build``): every read's m_pos, s_mer
+    and k_mer and the SyncmerDB's h, s, cov and position lists equal to
+    the single-device loader's; occurrences per shard, exchange bytes;
+17. ``--shards 1`` with OATK_TPU_STAGE_SHARDS=4 at 110 Mbp (alignment and
+    EC in 4 read blocks): both GFAs equal to phase 6's;
+18. K11 (``sharded_extract_count_step``) on a 4-shard ``cuda:0`` mesh over
+    2,048 reads of the 110 Mbp set: n_sel, n_distinct and the histogram
+    equal to numpy's unique over the single-device extraction of the same
+    rows, n_dropped all zero.
+
+The kernels line's ``launches_by_route`` gives the selection kernel's
+launches in each of phases 8-18, read right after the run that drove it.
 
 The last two lines of standard output are the card line and a JSON
 object ``{"ok": true, "device": {...}}``; the line before them lists the
@@ -807,7 +824,7 @@ def phase_full(work: str) -> dict:
         f"sha256={summ['sha256']}")
     ok = launches > 0 and summ["S"] > 0 and res.scg is not None
     return dict(ok=ok, launches=launches, fa=fa, n_bp=n_bp, sha256=summ["sha256"],
-                read_db=res.read_db, timings=res.timings or {})
+                read_db=res.read_db, timings=res.timings or {}, out=out, wall=wall)
 
 
 FAKE_NHMMSCAN = """#!/bin/bash
@@ -1358,6 +1375,172 @@ def phase_cpu_flag(work: str, parity: dict) -> dict:
     return dict(ok=ok)
 
 
+def same_as_full(tag: str, out: str, full: dict) -> bool:
+    """Both GFAs of a run byte-identical to phase 6's, one log line each."""
+    ok = True
+    for suf in OATK_SUFFIXES:
+        a, b = gfa_summary(out + suf), gfa_summary(full["out"] + suf)
+        same = a["sha256"] == b["sha256"] and a["S"] > 0
+        ok &= same
+        log(f"[{tag}] {suf}: equals phase 6's: {same} S={a['S']} sha256={a['sha256'][:16]}")
+    return ok
+
+
+def phase_shards1(work: str, full: dict) -> dict:
+    """``syncasm --shards 1`` through the CLI at 110 Mbp on the card (the
+    sharded loader on a one-card mesh: device extraction, owner routing,
+    the device sort) and with ``--device cpu``: both GFAs equal phase
+    6's; wall, load and collect_db beside phase 6's, peak memory."""
+    import torch
+
+    from oatk_tpu_torch.cli.syncasm import main as syncasm_main
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+
+    ok, launches = True, 0
+    for dev in ("cuda", "cpu"):
+        out = os.path.join(work, f"shards1_{dev}")
+        argv = [full["fa"], "-k", str(K_MAIN), "-s", str(S_MAIN), "-c", "30", "--shards", "1",
+                "--device", dev, "-o", out]
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            syncmer_select.launches = 0
+        r = run_cli(syncasm_main, argv)
+        if dev == "cuda":
+            launches = syncmer_select.launches
+            log(f"[shards1] card: syncmer_select launches={launches} "
+                f"max_memory_allocated={torch.cuda.max_memory_allocated()} B")
+        log(f"[shards1] --shards 1 --device {dev}: rc={r['rc']} wall {r['wall']:.3f} s "
+            f"(phase 6, one device: {full['wall']:.3f} s)")
+        log(f"[shards1] --device {dev} {r['stages']}")
+        log(f"[shards1] phase 6: {stage_ms(full['timings'], 'load', 'collect_db')}")
+        ok &= r["rc"] == 0 and same_as_full("shards1", out, full)
+    return dict(ok=ok and launches > 0, launches=launches)
+
+
+def phase_mesh(work: str, full: dict) -> dict:
+    """In-process meshes of 4 and 5 shards on cuda:0 at 110 Mbp
+    (load_and_extract_sharded + build): every read's m_pos, s_mer and
+    k_mer, and the SyncmerDB's h, s, cov and position lists, equal to
+    the single-device loader's (phase 6's loader, run again here);
+    per-shard occurrence counts, exchange bytes, times, peak memory."""
+    import numpy as np
+    import torch
+
+    from oatk_tpu_torch.asm.pipeline import load_reads
+    from oatk_tpu_torch.dist.sharded_db import load_and_extract_sharded
+    from oatk_tpu_torch.dist.sharding import Mesh
+    from oatk_tpu_torch.index.syncmer_db import collect_syncmer_db
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+
+    t0 = time.perf_counter()
+    ref = load_reads([full["fa"]], K_MAIN, S_MAIN, device="cuda")
+    ref_scm = collect_syncmer_db(ref)
+    torch.cuda.synchronize()
+    log(f"[mesh] single device: load + collect_db {time.perf_counter() - t0:.3f} s, "
+        f"{ref_scm.n} syncmers over {ref.total_syncmers()} occurrences")
+    ok, launches = True, {}
+    for n in (4, 5):
+        torch.cuda.reset_peak_memory_stats()
+        syncmer_select.launches = 0
+        t0 = time.perf_counter()
+        db, coll = load_and_extract_sharded([full["fa"]], K_MAIN, S_MAIN, Mesh(["cuda:0"] * n))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        scm = coll.build(db)
+        t2 = time.perf_counter()
+        launches[f"mesh{n}"] = syncmer_select.launches
+        bad = [r1.sid for r1, r2 in zip(ref.reads, db.reads)
+               if not all(np.array_equal(getattr(r1, f), getattr(r2, f))
+                          for f in ("m_pos", "s_mer", "k_mer"))]
+        same = (db.n == ref.n and not bad and scm.n == ref_scm.n and all(
+            np.array_equal(getattr(scm, f), getattr(ref_scm, f))
+            for f in ("h", "s", "cov", "mp_flat", "mp_off")))
+        ok &= same and launches[f"mesh{n}"] > 0
+        log(f"[mesh] {n} shards on cuda:0: load+route {t1 - t0:.3f} s, build {t2 - t1:.3f} s, "
+            f"{coll.n_steps} batches, syncmer_select launches={launches[f'mesh{n}']}, "
+            f"max_memory_allocated={torch.cuda.max_memory_allocated()} B")
+        log(f"[mesh] {n} shards: occurrences per shard {coll.occ_per_shard}, "
+            f"exchange {coll.exchange_bytes} B of (hash, low) pairs off their shard")
+        log(f"[mesh] {n} shards: ReadDB and SyncmerDB equal the single device's: {same} "
+            f"(reads that differ: {len(bad)})")
+    return dict(ok=ok, launches=launches)
+
+
+def phase_stage_shards(work: str, full: dict) -> dict:
+    """``--shards 1`` with OATK_TPU_STAGE_SHARDS=4 at 110 Mbp on the card:
+    alignment and EC in 4 read blocks, merged; both GFAs equal phase 6's."""
+    from oatk_tpu_torch.cli.syncasm import main as syncasm_main
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+
+    out = os.path.join(work, "stageshards_110mbp")
+    syncmer_select.launches = 0
+    with env_set(OATK_TPU_STAGE_SHARDS="4"):
+        r = run_cli(syncasm_main, [full["fa"], "-k", str(K_MAIN), "-s", str(S_MAIN), "-c", "30",
+                                   "--shards", "1", "--device", "cuda", "-o", out])
+    launches = syncmer_select.launches
+    log(f"[stageshards] OATK_TPU_STAGE_SHARDS=4 --shards 1: rc={r['rc']} wall {r['wall']:.3f} s; "
+        f"{r['stages']}")
+    ok = r["rc"] == 0 and same_as_full("stageshards", out, full)
+    return dict(ok=ok and launches > 0, launches=launches)
+
+
+def chunk_rows(fa: str, n_rows: int):
+    """The first ``n_rows`` reads of a FASTA as ASCII rows [n_rows, L]
+    (L the longest) and their lengths."""
+    import numpy as np
+
+    seqs = []
+    with open(fa) as f:
+        for ln in f:
+            if not ln.startswith(">"):
+                seqs.append(ln.strip())
+                if len(seqs) == n_rows:
+                    break
+    seq = np.zeros((len(seqs), max(len(q) for q in seqs)), np.uint8)
+    lens = np.zeros(len(seqs), np.int32)
+    for i, q in enumerate(seqs):
+        seq[i, : len(q)] = np.frombuffer(q.encode(), np.uint8)
+        lens[i] = len(q)
+    return seq, lens
+
+
+def phase_k11(work: str, full: dict, n_rows: int = 2048) -> dict:
+    """K11 (sharded_extract_count_step) on a 4-shard cuda:0 mesh over one
+    chunk of the 110 Mbp reads: n_sel, n_distinct and the histogram
+    equal numpy's unique over the single-device extraction of the same
+    rows; n_dropped all zero."""
+    import numpy as np
+    import torch
+
+    from oatk_tpu_torch.asm.reads import _round_up
+    from oatk_tpu_torch.dist.sharding import Mesh, sharded_extract_count_step
+    from oatk_tpu_torch.kernels.syncmer import extract_syncmers_ascii
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+
+    seq, lens = chunk_rows(full["fa"], n_rows)
+    max_out = _round_up(seq.size // 64, 1024)
+    syncmer_select.launches = 0
+    t0 = time.perf_counter()
+    nd, hist, n_sel, ndrop = sharded_extract_count_step(
+        seq, lens, K_MAIN, S_MAIN, max_out, Mesh(["cuda:0"] * 4))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = syncmer_select.launches
+    pk = extract_syncmers_ascii(torch.from_numpy(seq).cuda(), torch.from_numpy(lens).cuda(),
+                                K_MAIN, S_MAIN, max_out)["packed"]
+    n = int(pk[0, max_out])
+    _, counts = np.unique(pk[2, :n].cpu().numpy().view(np.uint64), return_counts=True)
+    want = np.bincount(np.clip(counts, 0, 63), minlength=64)
+    ok = (int(n_sel.sum()) == n <= max_out and int(nd.sum()) == len(counts)
+          and (hist == want).all() and not ndrop.any() and launches > 0)
+    log(f"[k11] {seq.shape[0]} x {seq.shape[1]} ASCII rows, 4 shards on cuda:0: {wall:.3f} s, "
+        f"syncmer_select launches={launches}; n_sel per shard {n_sel.tolist()}, "
+        f"n_distinct per shard {nd.tolist()}, n_dropped {ndrop.tolist()}")
+    log(f"[k11] equal to numpy over the single-device extraction ({n} selections, "
+        f"{len(counts)} distinct): {ok}")
+    return dict(ok=ok, launches=launches)
+
+
 def build_kernels(mods: dict) -> None:
     """Build every kernel from the checkout's sources, one nvcc per
     source, all started together; print each build's seconds and the
@@ -1429,12 +1612,18 @@ def main() -> int:
         ("device_consensus", lambda: phase_device_consensus(WORK, full)),
         ("device_em", lambda: phase_device_em(WORK, full)),
         ("cpu_flag", lambda: phase_cpu_flag(WORK, parity)),
+        ("shards1", lambda: phase_shards1(WORK, full)),
+        ("mesh", lambda: phase_mesh(WORK, full)),
+        ("stage_shards4", lambda: phase_stage_shards(WORK, full)),
+        ("k11", lambda: phase_k11(WORK, full)),
     ):
         t0 = time.perf_counter()
         r = fn()
         log(f"[phase] {name}: ok={r['ok']} in {time.perf_counter() - t0:.3f} s")
         ok &= r["ok"]
-        if "launches" in r:
+        if isinstance(r.get("launches"), dict):
+            routes.update(r["launches"])
+        elif "launches" in r:
             routes[name] = r["launches"]
 
     # no single PyTorch call computes either function: library_ms is null

@@ -514,11 +514,29 @@ def chain_tables(g, idx, flat):
 
 def scg_read_alignment(
     read_db: ReadDB, scg: Scg, for_unzip: bool = False, old_ra_db: list | None = None,
+    shard: tuple[int, int] | None = None,
 ) -> list[ReadAln]:
-    """Align all (gated) reads in one process; returns alignment records
-    sorted by read."""
+    """Align all (gated) reads; returns alignment records sorted by read.
+
+    shard=(rank, n): align only the rank-th contiguous block of gated
+    reads (data parallelism over processes, reference
+    alignment.c:636-676); the caller merges the flat results in rank
+    order (:mod:`oatk_tpu_torch.dist.stages`).  Reads are mutually
+    independent, so the merged result is bit-identical to an unsharded
+    run.  With no shard given, a process group of more than one rank or
+    OATK_TPU_STAGE_SHARDS > 1 routes the call through that module."""
     if scg.utg.vtx_n1() == 0:
         return []
+    if shard is None:
+        import os as _os
+
+        from ..dist import comm
+
+        _k = int(_os.environ.get("OATK_TPU_STAGE_SHARDS", "0"))
+        if comm.process_count() > 1 or _k > 1:
+            from ..dist.stages import sharded_read_alignment
+
+            return sharded_read_alignment(read_db, scg, for_unzip, old_ra_db, n_shards=_k)
     n_reads = read_db.n
     from .. import native
 
@@ -560,6 +578,11 @@ def scg_read_alignment(
     n_mappable = int((mc > 0).sum())
 
     sids_arr = np.flatnonzero((mc > 0) & ((old_ra & 1) == 1))
+    if shard is not None:
+        r, npr = shard
+        lo = (len(sids_arr) * r) // npr
+        hi = (len(sids_arr) * (r + 1)) // npr
+        sids_arr = sids_arr[lo:hi]
     if native.available() and len(sids_arr):
         n_scm = mc[sids_arr]
         uid, upos, spos, aoff = _batch_anchors(read_db, scg, sids_arr, ulen, n_scm)
@@ -594,8 +617,9 @@ def scg_read_alignment(
                     RaFrag(f["uid"], f["u_beg"], f["u_end"], f["s_beg"], f["s_end"]) for f in ch
                 ]
                 ra_db.append(ReadAln(r.sid, frags, 1.0 / n_a + max_score))
-    log_info(
-        f"{n_mappable} mappable reads, {n_mapped} mapped ({n_unique} unique mapping)",
-        func="scg_read_alignment",
-    )
+    if shard is None:
+        log_info(
+            f"{n_mappable} mappable reads, {n_mapped} mapped ({n_unique} unique mapping)",
+            func="scg_read_alignment",
+        )
     return ra_db

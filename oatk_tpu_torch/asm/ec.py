@@ -11,6 +11,7 @@ positions), then the syncmer DB coverage is rebuilt.
 """
 from __future__ import annotations
 
+import os
 import sys
 
 import numpy as np
@@ -320,15 +321,29 @@ def _kmer_size(scg) -> int:
 
 def _correct_reads_native(
     read_db: ReadDB, scg: Scg, max_edist: float, stats: np.ndarray,
+    ranges: list[tuple[int, int]] | None = None, gather=None,
 ) -> bool:
-    """Run the batched C corrector (native/ec.c) over all reads in one
-    process; returns False when unavailable so the caller uses the
-    Python loop."""
+    """Run the batched C corrector (native/ec.c); returns False when
+    unavailable so the caller uses the Python loop.
+
+    ranges: contiguous read ranges to correct here (data parallelism
+    over processes, reference syncerr.c:882); ``gather`` turns the local
+    parts into the full part list in read order (the cross-process
+    allgather).  Per-read corrections are independent (the graph is
+    read-only during EC), so the merged splice is bit-identical to an
+    unsharded run."""
     from .. import native
 
     # an explicit wavefront backend (device / numpy) must actually drive
     # EC: route through the Python loop + wf_ed_core
     cap = _wf.WF_BACKEND == "auto" and native.available()
+    if gather is not None:
+        # cross-process: agree on capability BEFORE any data collective
+        # so one incapable rank sends ALL ranks to the replicated
+        # Python loop instead of leaving the others in the allgather
+        from ..dist.comm import all_ranks_ok
+
+        cap = all_ranks_ok(cap)
     if not cap:
         return False
     g = scg.utg
@@ -390,17 +405,68 @@ def _correct_reads_native(
         np.ascontiguousarray(scg.scm_db.del_, np.uint8),
     )
 
-    res = native.ec_correct_reads(
-        *g_args,
-        np.ascontiguousarray(kflat), np.ascontiguousarray(mflat),
-        np.ascontiguousarray(moff), np.ascontiguousarray(code_flat),
-        np.ascontiguousarray(hoff), np.ascontiguousarray(hoco_l),
-        read_db.k, max_edist,
-        lazy_src=lazy_src, lazy_rev=lazy_rev, lazy_codes=lazy_codes,
-    )
-    if res is None:
+    def run_range(lo: int, hi: int):
+        if lo == 0 and hi == n_reads:
+            k_s, m_s, moff_s = kflat, mflat, moff
+            c_s, hoff_s, hl_s = code_flat, hoff, hoco_l
+        else:
+            k_s = kflat[moff[lo] : moff[hi]]
+            m_s = mflat[moff[lo] : moff[hi]]
+            moff_s = moff[lo : hi + 1] - moff[lo]
+            c_s = code_flat[hoff[lo] : hoff[hi]]
+            hoff_s = hoff[lo : hi + 1] - hoff[lo]
+            hl_s = hoco_l[lo:hi]
+        return native.ec_correct_reads(
+            *g_args,
+            np.ascontiguousarray(k_s), np.ascontiguousarray(m_s),
+            np.ascontiguousarray(moff_s), np.ascontiguousarray(c_s),
+            np.ascontiguousarray(hoff_s), np.ascontiguousarray(hl_s),
+            read_db.k, max_edist,
+            lazy_src=lazy_src, lazy_rev=lazy_rev, lazy_codes=lazy_codes,
+        )
+
+    parts = []
+    failed = False
+    for lo, hi in ranges or [(0, n_reads)]:
+        res = run_range(lo, hi)
+        if res is None:
+            failed = True
+            break
+        parts.append(res)
+    if gather is not None:
+        # second agreement: a data-dependent failure (allocation,
+        # wavefront overflow) on one rank must not skip the collective
+        from ..dist.comm import all_ranks_ok
+
+        if not all_ranks_ok(not failed):
+            return False
+    if failed:
         return False
-    st, out_kmer, out_mpos, out_cut, out_upd = res
+    if gather is not None:
+        import time as _time
+
+        _g0 = _time.perf_counter()
+        parts = gather(parts)
+        if os.environ.get("OATK_TPU_TIMEIT"):
+            print(
+                f"[T::dist] ec_gather={(_time.perf_counter() - _g0) * 1000:.1f}ms",
+                file=sys.stderr, flush=True,
+            )
+    if len(parts) == 1:
+        st, out_kmer, out_mpos, out_cut, out_upd = parts[0]
+    else:
+        st = parts[0][0].copy()
+        for p in parts[1:]:
+            st = st + p[0]
+        out_kmer = np.concatenate([p[1] for p in parts])
+        out_mpos = np.concatenate([p[2] for p in parts])
+        out_upd = np.concatenate([p[4] for p in parts])
+        cut_l = [np.zeros(1, np.int64)]
+        base = 0
+        for p in parts:
+            cut_l.append(p[3][1:] + base)
+            base += int(p[3][-1])
+        out_cut = np.concatenate(cut_l)
     stats += st
     from .consensus import set_read_flats
 
@@ -524,7 +590,23 @@ def read_error_correction(
     find_error_syncmers(scg, err_mer_c, max_err_c, err_arc_c, max_arc_f, True)
 
     stats = np.zeros(11, np.int64)
-    if not _correct_reads_native(read_db, scg, max_edist, stats):
+    # read sharding over processes: each process corrects its contiguous
+    # read range and the parts allgather in rank order;
+    # OATK_TPU_STAGE_SHARDS forces the partition and merge in one process
+    from ..dist import comm
+
+    ranges = gather = None
+    n_stage = int(os.environ.get("OATK_TPU_STAGE_SHARDS", "0"))
+    if comm.process_count() > 1:
+        from ..dist.stages import ec_gather, shard_ranges
+
+        ranges = [shard_ranges(read_db.n, comm.process_count())[comm.process_index()]]
+        gather = ec_gather
+    elif n_stage > 1:
+        from ..dist.stages import shard_ranges
+
+        ranges = shard_ranges(read_db.n, n_stage)
+    if not _correct_reads_native(read_db, scg, max_edist, stats, ranges, gather):
         from .consensus import ensure_vtx_seq
 
         ensure_vtx_seq(scg.utg)

@@ -7,7 +7,8 @@ pre-unzip clean (tips only when unzipping) -> unzip rounds ->
 demultiplex -> coverage estimation -> final clean -> consensus GFA.
 
 Extraction and counting run on ``device`` (the fused loader and the
-device count state), and so does error correction's wavefront core
+device count state, or, with ``shards``, the sharded loader on a mesh
+of that many devices), and so does error correction's wavefront core
 under OATK_TPU_WF_BACKEND=device; every other stage is the JAX
 package's host code (numpy + the shared native C library), carried
 unchanged.
@@ -50,24 +51,25 @@ def resolve_device(device):
     return dev
 
 
-# settings of oatk_tpu's multi-device path, which the port does not read yet
-MULTI_DEVICE_SETTINGS = ("OATK_TPU_STAGE_SHARDS", "OATK_TPU_SHARDED_IMPL", "OATK_TPU_SHARD_CAP_SCALE")
+# settings of oatk_tpu's multi-device path that the port does not read,
+# each with the reason
+UNREAD_SETTINGS = {
+    "OATK_TPU_SHARDED_IMPL": "the sharded loader always runs the selection kernel",
+    "OATK_TPU_SHARD_CAP_SCALE": "the sharded buffers are sized exactly and cannot overflow",
+}
 _multi_device_warned = False
 
 
 def warn_multi_device_settings() -> None:
-    """Warn once on stderr for each run that sets a multi-device setting:
-    the port has no multi-device path yet, so the setting changes nothing
-    (outputs stay those of the single-device run)."""
+    """Warn once on stderr for each run that sets a multi-device setting
+    the port does not read (outputs are those of a run without it)."""
     global _multi_device_warned
-    set_ = [n for n in MULTI_DEVICE_SETTINGS if os.environ.get(n) is not None]
+    set_ = [n for n in UNREAD_SETTINGS if os.environ.get(n) is not None]
     if set_ and not _multi_device_warned:
         _multi_device_warned = True
-        print(
-            f"[W::syncasm] {', '.join(set_)} set, but oatk_tpu_torch does not read "
-            "the multi-device settings yet; running on one device",
-            file=sys.stderr,
-        )
+        why = "; ".join(f"{n}: {UNREAD_SETTINGS[n]}" for n in set_)
+        print(f"[W::syncasm] oatk_tpu_torch does not read {', '.join(set_)} ({why})",
+              file=sys.stderr)
 
 
 def load_reads(
@@ -124,6 +126,7 @@ def syncasm(
     out: str = "syncasm.asm",
     use_device: bool = True,
     verbose: int = 0,
+    shards: int = 0,
     threads: int = 0,
     device="cuda",
 ) -> SyncasmResult:
@@ -157,6 +160,7 @@ def syncasm(
             return _syncasm_impl(
                 files, k, s, min_k_cov, min_a_cov_f, bubble_size, tip_size,
                 weak_cross, do_ec, do_unzip, max_data, out, use_device, verbose, dev,
+                shards,
             )
     finally:
         if threads >= 1:
@@ -182,7 +186,7 @@ def _torch_trace(prof_dir: str, dev):
 
 def _syncasm_impl(
     files, k, s, min_k_cov, min_a_cov_f, bubble_size, tip_size, weak_cross,
-    do_ec, do_unzip, max_data, out, use_device, verbose, device,
+    do_ec, do_unzip, max_data, out, use_device, verbose, device, shards,
 ) -> SyncasmResult:
     import os as _os
     import time as _time
@@ -198,7 +202,23 @@ def _syncasm_impl(
         _tick[0] = now
 
     _timeit = bool(_os.environ.get("OATK_TPU_TIMEIT"))
-    read_db = load_reads(files, k, s, max_data, device, use_device)
+    collector = None
+    if shards >= 1 and not use_device:
+        log_info("--cpu disables the device mesh; ignoring --shards", func="syncasm")
+        shards = 0
+    if shards >= 1:
+        # multi-device path: data-parallel extraction + hash-range-routed
+        # occurrence sharding over a mesh of ``shards`` devices
+        # (dist/sharded_db.py); the SyncmerDB is byte-identical to the
+        # single-device path's
+        from ..dist.sharded_db import load_and_extract_sharded
+        from ..dist.sharding import make_mesh
+
+        warn_multi_device_settings()
+        read_db, collector = load_and_extract_sharded(
+            files, k, s, make_mesh(shards, device), max_data)
+    else:
+        read_db = load_reads(files, k, s, max_data, device, use_device)
     _t("load")
     log_info(f"collected syncmers from {read_db.n} target sequence(s)", func="syncasm")
     # DB collection runs before the (silent-output-independent) stat
@@ -207,7 +227,7 @@ def _syncasm_impl(
     # stats are identical either way -- they depend only on the count
     # multiset, which the hash->id rewrite preserves (locked by the
     # -v stderr byte-parity tests).
-    scm_db = collect_syncmer_db(read_db)
+    scm_db = collector.build(read_db) if collector is not None else collect_syncmer_db(read_db)
     _t("collect_db")
     read_db_stat(read_db, sys.stderr, verbose)
     _t("stat")

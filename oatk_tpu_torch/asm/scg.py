@@ -169,15 +169,24 @@ def make_syncmer_graph(
         hi = max(int(cv0.max()), int(cv1.max()))
         if hi < (1 << 32):
             # post-collection vertex ids are small: one packed-u64 sort
-            # replaces the two-key lexsort over all adjacent pairs
-            # (single process: the port has no range-sharded reduce yet)
+            # replaces the two-key lexsort over all adjacent pairs; in
+            # multi-process runs the sort-reduce is range-sharded
+            # across ranks (dist/stages.py, bit-identical merge)
             from .. import native
+            from ..dist.stages import sharded_pair_reduce
 
             packed = np.ascontiguousarray((cv0 << np.uint64(32)) | cv1)
-            if not native.sort_u64(packed):
-                packed.sort(kind="stable")
-            k0 = packed >> np.uint64(32)
-            k1 = packed & np.uint64(0xFFFFFFFF)
+            res = sharded_pair_reduce(packed)
+            if res is not None:
+                pk_unique, counts = res
+                uv0 = (pk_unique >> np.uint64(32)).astype(np.int64)
+                uv1 = (pk_unique & np.uint64(0xFFFFFFFF)).astype(np.int64)
+                k0 = None
+            else:
+                if not native.sort_u64(packed):
+                    packed.sort(kind="stable")
+                k0 = packed >> np.uint64(32)
+                k1 = packed & np.uint64(0xFFFFFFFF)
         else:
             order = np.lexsort((cv1, cv0))
             k0, k1 = cv0[order], cv1[order]

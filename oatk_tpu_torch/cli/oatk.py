@@ -45,7 +45,10 @@ def build_parser():
         "OATK_TPU_WF_BACKEND=device) EC's wavefront [cuda]; cpu runs the "
         "kernels' plain PyTorch versions",
     )
-    p.add_argument("--shards", type=int, default=0, help="multi-device sharding (not ported yet)")
+    p.add_argument(
+        "--shards", type=int, default=0,
+        help="shard extraction+counting over this many devices of --device [off]",
+    )
     # annotation
     p.add_argument("-m", dest="mito_db", default=None)
     p.add_argument("-p", dest="pltd_db", default=None)
@@ -77,8 +80,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.shards:
-        raise NotImplementedError("--shards is not ported to oatk_tpu_torch yet")
     from . import pathfinder as pf_cli
 
     if pf_cli.apply_tags(args):
@@ -116,7 +117,8 @@ def main(argv=None):
             args.files, k=args.k, s=args.s, min_k_cov=args.c, min_a_cov_f=args.a,
             bubble_size=args.max_bubble, tip_size=args.max_tip, weak_cross=args.weak_cross,
             do_ec=not args.no_read_ec, do_unzip=args.unzip_round, max_data=args.D,
-            out=outpref, verbose=args.verbose, threads=args.threads, device=args.device,
+            out=outpref, verbose=args.verbose, shards=args.shards, threads=args.threads,
+            device=args.device,
         )
         if scg_meta.scg is None:
             sys.stderr.write("[E::main] syncasm assembly program failed\n")

@@ -32,8 +32,9 @@ environment variables:
                          reduction order is NOT guaranteed to reproduce
                          the reference byte-for-byte -- outputs may
                          differ in the last bits on some inputs
-
-not ported yet (refused with an error): --shards
+  OATK_TPU_STAGE_SHARDS  split alignment and EC into this many read
+                         blocks in one process and merge them (checks
+                         the partition; outputs unchanged)
 """
 
 
@@ -68,7 +69,10 @@ def build_parser():
         "--cpu", action="store_true",
         help="run extraction on the host CPU oracle (other stages follow --device)",
     )
-    p.add_argument("--shards", type=int, default=0, help="multi-device sharding (not ported yet)")
+    p.add_argument(
+        "--shards", type=int, default=0,
+        help="shard extraction+counting over this many devices of --device [off]",
+    )
     p.add_argument("-v", "--verbose", type=int, default=0)
     p.add_argument("--version", action="version", version="1.0")
     return p
@@ -76,8 +80,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.shards:
-        raise NotImplementedError("--shards is not ported to oatk_tpu_torch yet")
     res = syncasm(
         args.files,
         k=args.k,
@@ -93,6 +95,7 @@ def main(argv=None):
         out=args.o,
         use_device=not args.cpu,
         verbose=args.verbose,
+        shards=args.shards,
         threads=args.threads,
         device=args.device,
     )

@@ -103,6 +103,18 @@ def extract_hoco_fused(
     return selected_details(hoco_c, sel, w, s, max_out)
 
 
+def extract_hoco_rows(codes: torch.Tensor, w: int, s: int, max_out: int) -> torch.Tensor:
+    """Syncmer extraction from host-compressed hoco code rows (port of
+    ``oatk_tpu/kernels/syncmer.py:extract_hoco_batch_pallas``, the
+    sharded loader's route): ``codes`` uint8 ``[b, L]`` holds 0-3 for a
+    base, 4 for an N and 5 past the read's end.  Returns the packed
+    ``[3, max_out+1]`` of :func:`extract_hoco_fused` (flat = row*L + p)."""
+    b = codes.shape[0]
+    five = codes.new_full((b, 1), 5)
+    sel = syncmer_select(torch.cat([five, codes, five.expand(b, w + 2)], dim=1), w, s)
+    return selected_details(torch.where(codes < 4, codes, 0), sel, w, s, max_out)
+
+
 def hoco_phase(seq: torch.Tensor, lens: torch.Tensor) -> dict:
     """Homopolymer compression on the device (port of
     ``oatk_tpu/kernels/syncmer.py:_hoco_phase``): ASCII ``[B, L]`` uint8

@@ -264,13 +264,15 @@ def test_count_knob(tmp_path, reads, monkeypatch, capsys, value, device_count):
 @pytest.mark.parametrize("name", ["OATK_TPU_STAGE_SHARDS", "OATK_TPU_SHARDED_IMPL",
                                   "OATK_TPU_SHARD_CAP_SCALE", None])
 def test_multi_device_settings_warn_once(tmp_path, reads, monkeypatch, capsys, name):
-    """A multi-device setting, which the port does not read yet, warns once
-    on stderr, and the loaded ReadDB is the one of a run without it."""
+    """A multi-device setting that the port does not read
+    (OATK_TPU_SHARDED_IMPL, OATK_TPU_SHARD_CAP_SCALE) warns once on
+    stderr, with the reason; OATK_TPU_STAGE_SHARDS, which the port reads,
+    does not warn.  The loaded ReadDB is the one of a run without it."""
     from oatk_tpu_torch.asm import pipeline as TP
 
     fa = tmp_path / "r.fa"
     _write_fa(str(fa), reads[:10])
-    for n in TP.MULTI_DEVICE_SETTINGS:
+    for n in ("OATK_TPU_STAGE_SHARDS", *TP.UNREAD_SETTINGS):
         monkeypatch.delenv(n, raising=False)
     plain = TP.load_reads([str(fa)], W, S, device="cpu")
     capsys.readouterr()
@@ -279,10 +281,12 @@ def test_multi_device_settings_warn_once(tmp_path, reads, monkeypatch, capsys, n
         monkeypatch.setenv(name, "2")
     dbs = [TP.load_reads([str(fa)], W, S, device="cpu") for _ in range(2)]
     err = capsys.readouterr().err
-    warning = "does not read the multi-device settings yet"
-    assert err.count(warning) == (name is not None)
-    if name is not None:
-        assert name in err
+    unread = name in TP.UNREAD_SETTINGS
+    assert err.count("oatk_tpu_torch does not read") == unread
+    if unread:
+        assert f"{name}: {TP.UNREAD_SETTINGS[name]}" in err
+    else:
+        assert not err
     for db in dbs:
         for a, b in zip(plain.reads, db.reads):
             assert np.array_equal(a.k_mer, b.k_mer) and np.array_equal(a.m_pos, b.m_pos)

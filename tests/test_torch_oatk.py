@@ -195,10 +195,16 @@ def test_oatk_max_data_byte_identical(genome_reads, tmp_path, monkeypatch, capsy
 
 
 @pytest.mark.parametrize("flag", [["--shards", "2"]])
-def test_oatk_unported_flags_refuse(tmp_path, flag):
+def test_oatk_unported_flags_refuse(tmp_path, monkeypatch, flag):
+    """--shards is ported; through oatk, a mesh of more cards than are
+    visible is refused before any read is loaded."""
+    import torch
+
     from oatk_tpu_torch.cli.oatk import main
 
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     exe, db = _stub(tmp_path, "nad$i")
-    with pytest.raises(NotImplementedError):
-        main(["-m", db, "--nhmmscan", exe, "--device", "cpu", "-o", str(tmp_path / "x"),
+    with pytest.raises(ValueError, match="only 1 CUDA device"):
+        main(["-m", db, "--nhmmscan", exe, "--device", "cuda", "-o", str(tmp_path / "x"),
               "in.fa", *flag])

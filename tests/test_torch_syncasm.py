@@ -68,11 +68,18 @@ def _same_gfas(oj, ot):
         assert a == b, suf
 
 
-def test_unported_cli_flags_refuse(reads_fa, tmp_path):
+def test_unported_cli_flags_refuse(reads_fa, tmp_path, monkeypatch):
+    """--shards is ported; a mesh of more cards than are visible is
+    refused before any read is loaded (no silent fallback to fewer
+    cards or to the CPU)."""
+    import torch
+
     from oatk_tpu_torch.cli.syncasm import main
 
-    with pytest.raises(NotImplementedError):
-        main([reads_fa, "-k", str(K), "-s", str(S), "--device", "cpu",
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="only 1 CUDA device"):
+        main([reads_fa, "-k", str(K), "-s", str(S), "--device", "cuda",
               "-o", str(tmp_path / "x"), "--shards", "2"])
 
 
