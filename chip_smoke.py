@@ -8,16 +8,23 @@ Run from the repository root, on a machine with a CUDA card:
 Phases (any failure makes the exit code non-zero):
 
 1. the card's name and power limit, and the torch / CUDA versions;
-2. build both CUDA kernels (``oatk_tpu_torch/csrc/syncmer_select.cu``,
-   ``oatk_tpu_torch/csrc/wf_ed.cu``) from the sources in the checkout,
-   one nvcc each, started together, with the compiler's register,
-   shared-memory and spill report;
+2. build the CUDA sources (``oatk_tpu_torch/csrc/syncmer_select.cu``,
+   ``oatk_tpu_torch/csrc/wf_ed.cu``, ``oatk_tpu_torch/csrc/syncmer_details.cu``)
+   from the checkout, one nvcc each, started together, with the
+   compiler's register, shared-memory and spill report;
 3. the selection kernel against its plain PyTorch version, both on the
    card, exactly: one main-path chunk at k=1001/s=31 (2048 rows x 16384
    positions = 32 Mi positions, ragged read ends, Ns at 1e-3) and small
    (w, s) cases up to k=20001, each with at least 20 selections where its
    rows allow them; median times by CUDA events, the tile, shared memory
    per block and blocks per SM of each case;
+3b. the blob decode (K3d) and the compaction and details (K4) kernels
+   against their plain versions on the card, exactly over the whole
+   output: the same bench chunk as an upload blob (K1 between them), the
+   small cases, a forced overflow, and the rows and ASCII routes against
+   their CPU runs; median times by CUDA events beside each bound, the
+   plain versions' and ``torch.nonzero``'s on the same ``sel``, each
+   launch's device time, and the device events of one loader chunk;
 4. the wavefront kernel against its plain version on the card, exactly
    over the whole output state: 2,000 single states shaped like error
    correction's calls at k=1001 (tl up to 5,700, ql up to 6,600, EC's
@@ -32,8 +39,12 @@ Phases (any failure makes the exit code non-zero):
    (k=1001/s=31/c=3): the GFAs must be byte-identical;
 6. full ``syncasm`` on the card on the 110 Mbp organelle-plus-nuclear
    set (k=1001, s=31, c=30, EC on, 3 unzip rounds): wall time, stage
-   split, kernel launch count (must be above 0), peak device memory,
-   S/L line counts and the sha256 of ``.utg.final.gfa``;
+   split and the load stage's own split (``load.extract``: the loader's
+   main-thread extraction), the launch counts of K1, K3d and K4 (each
+   must be above 0), ``torch.nonzero`` calls inside the loader (must be
+   0), peak device memory, S/L line counts and the sha256 of
+   ``.utg.final.gfa``; then one run under torch.profiler: each kernel's
+   summed device time and all device events;
 7. ``oatk`` (syncasm -> annotation -> pathfinder) through its CLI at its
    defaults on the same 110 Mbp set, with a stub nhmmscan written into
    the work directory: on the card with OATK_TPU_WF_BACKEND=device (EC's
@@ -83,8 +94,9 @@ Phases (any failure makes the exit code non-zero):
     equal to numpy's unique over the single-device extraction of the same
     rows, n_dropped all zero.
 
-The kernels line's ``launches_by_route`` gives the selection kernel's
-launches in each of phases 8-18, read right after the run that drove it.
+The kernels line's ``launches_by_route`` gives each kernel's launches
+in each of phases 8-18 that reports them (K4 on every route, phases 10
+and 15-18 included), read right after the run that drove it.
 
 The last two lines of standard output are the card line and a JSON
 object ``{"ok": true, "device": {...}}``; the line before them lists the
@@ -93,10 +105,12 @@ bytes each must move over 3.35 TB/s, the H100 SXM's memory rate, and its
 operations over a compute rate: for the selection kernel the 32-bit
 instructions of the function's own work on this run's input (``K1_OPS``),
 each at its pipe's rate on 132 SMs at the card's maximum SM clock; for
-the wavefront kernel its cell operations over 67 T/s).  The short
-card loop for the selection kernel alone is
-``python3 -c 'import chip_smoke as c; c.kernel_loop()'``.  Without a CUDA device the
-script prints no result and exits with code 2.  Datasets are generated
+the wavefront kernel its cell operations over 67 T/s; for the details
+the larger of their bytes and their operations (``K4_OPS``) over 67 T/s;
+for the decode its bytes).  The short card loops are
+``python3 -c 'import chip_smoke as c; c.kernel_loop()'`` (the selection
+kernel) and ``c.details_loop()`` (the decode and details kernels).
+Without a CUDA device the script prints no result and exits with code 2.  Datasets are generated
 from fixed seeds into ``build/chip_smoke/`` (git-ignored).
 """
 from __future__ import annotations
@@ -359,6 +373,247 @@ def kernel_loop() -> int:
     build_kernels({"syncmer_select.cu": SS})
     r = phase_kernel("cuda")
     log(f"[kernel] ok={r['ok']} {json.dumps({k: v for k, v in r.items() if k != 'ok'})}")
+    return 0 if r["ok"] else 1
+
+
+def make_blob(rng, B: int, Lp: int, w: int, n_rate: float):
+    """An upload blob as the loader packs it (``asm/reads.py:chunk_blob``):
+    random bases, Ns at n_rate, ragged read ends (row 1 shorter than
+    w+4).  Returns (blob uint8 numpy, n_cap)."""
+    import numpy as np
+
+    from oatk_tpu_torch.asm.reads import chunk_blob
+
+    codes = rng.integers(0, 4, (B, Lp)).astype(np.uint8)
+    q = codes.reshape(B, Lp // 4, 4)
+    hl = rng.integers(max(1, Lp // 2), Lp + 1, B)
+    hl[0] = Lp
+    if B > 1:
+        hl[1] = min(Lp, w + 3)
+    blob, packed, hl_v, n_cap = chunk_blob(B, Lp, np.flatnonzero(rng.random(B * Lp) < n_rate))
+    packed[:] = (q[..., 0] << 6) | (q[..., 1] << 4) | (q[..., 2] << 2) | q[..., 3]
+    hl_v[:] = hl
+    return blob, n_cap
+
+
+def max_abs_err(a, b) -> int:
+    """Largest |a - b| over two int64 tensors of one shape, exactly (the
+    bit patterns are unsigned hashes: compared as Python ints)."""
+    d = (a != b).nonzero()
+    if d.shape[0] == 0:
+        return 0
+    idx = tuple(d[:1000].t().cpu())
+    return max(abs(int(x) - int(y)) for x, y in zip(a[idx].tolist(), b[idx].tolist()))
+
+
+def ascii_rows(rng, B: int, L: int):
+    """Raw read rows for the ASCII route: homopolymer-rich bases, upper
+    and lower case, Ns at 1e-4, ragged lengths."""
+    import numpy as np
+
+    alphabet = np.frombuffer(b"ACGTacgt", np.uint8)
+    seq = alphabet[rng.integers(0, 8, (B, L))]
+    run = rng.random((B, L)) < 0.3
+    for j in range(1, L):
+        seq[:, j] = np.where(run[:, j], seq[:, j - 1], seq[:, j])
+    seq[rng.random((B, L)) < 1e-4] = ord("N")
+    lens = rng.integers(L // 2, L + 1, B).astype(np.int32)
+    lens[0] = L
+    return seq, lens
+
+
+def kernel_name(name: str) -> str:
+    """A device event's name without its namespace and arguments."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+
+
+def profile_device(fn) -> list:
+    """(name, device us) of every device event (kernels, copies, fills)
+    that fn() made, by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def phase_details(device, main_shape=(2048, 16384), small=SMALL_CASES, reps=10) -> dict:
+    """The decode (K3d) and details (K4) kernels against their plain
+    versions on the same card tensors, exactly over the whole output:
+    the bench chunk (K1 between them on the kernel's output), the small
+    cases, a forced overflow, the rows route (``extract_hoco_rows``) and
+    the ASCII route (``extract_syncmers_ascii``) against their CPU runs;
+    median times by CUDA events beside each bound, the plain versions'
+    times and ``torch.nonzero`` on the same ``sel``; the device events of
+    one loader chunk (upload, chain, n_sel read)."""
+    import numpy as np
+    import torch
+
+    from oatk_tpu_torch.asm.reads import _capacity
+    from oatk_tpu_torch.kernels import syncmer_details as SD
+    from oatk_tpu_torch.kernels.syncmer import extract_hoco_rows, extract_syncmers_ascii
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+
+    ok, dec_err, det_err, res = True, 0, 0, {}
+    cases = [(K_MAIN, S_MAIN, *main_shape, 1e-3)] + [(w, s, B, L, min(1e-3, 0.3 / w))
+                                                      for w, s, B, L in small]
+    for i, (w, s, B, L, nr) in enumerate(cases):
+        Lp = -(-L // 16) * 16
+        blob, n_cap = make_blob(np.random.default_rng((20261018, i)), B, Lp, w, nr)
+        bt = torch.from_numpy(blob).to(device)
+        cp = SD.decode_blob(bt, B, Lp, n_cap, w)
+        torch.cuda.synchronize()
+        cp_ref = SD.decode_blob_plain(bt, B, Lp, n_cap, w)
+        same_dec = torch.equal(cp, cp_ref)
+        sel = syncmer_select(cp, w, s)
+        n_sel = int((sel != 0).sum())
+        max_out = _capacity(B, Lp, w, s)
+        # the loader's capacity, and one that overflows
+        outs = [(max_out, "")] + ([(n_sel // 2, " overflow")] if i in (0, 1) and n_sel > 1 else [])
+        for mo, tag in outs:
+            got = SD.selected_details(cp, sel, w, s, mo)
+            torch.cuda.synchronize()
+            ref = SD.selected_details_plain(cp, sel, w, s, mo)
+            err = max_abs_err(got, ref)
+            same = torch.equal(got, ref) and int(got[0, mo]) == n_sel
+            ok &= same
+            det_err = max(det_err, err)
+            log(f"[details] w={w} s={s} B={B} Lp={Lp}{tag}: n_sel={n_sel} max_out={mo} "
+                f"equal={same} max_abs_err={err}")
+        ok &= same_dec and (n_sel >= MIN_SELECTED or Lp < 2 * w)
+        dec_err = max(dec_err, int((cp.int() - cp_ref.int()).abs().max()))
+        log(f"[details] w={w} s={s} B={B} Lp={Lp}: decode equal={same_dec} n_cap={n_cap}")
+        if i == 0:
+            res.update(details_timing(bt, cp, sel, B, Lp, n_cap, w, s, max_out, reps))
+            res["chunk_events"] = chunk_events(blob, B, Lp, n_cap, w, s, max_out, device)
+        del bt, cp, cp_ref, sel
+
+    rng = np.random.default_rng(20261019)
+    x = make_select_input(rng, 64, 16384, K_MAIN, 1e-3, "cpu")
+    rows = x[:, 1:1 + 16384].contiguous()
+    mo = _capacity(64, 16384, K_MAIN, S_MAIN)
+    a = extract_hoco_rows(rows.to(device), K_MAIN, S_MAIN, mo).cpu()
+    b = extract_hoco_rows(rows, K_MAIN, S_MAIN, mo)
+    same_rows = torch.equal(a, b) and int(b[0, mo]) > 0
+    seq, lens = ascii_rows(rng, 64, 15000)
+    a = extract_syncmers_ascii(torch.from_numpy(seq).to(device), torch.from_numpy(lens).to(device),
+                               K_MAIN, S_MAIN, mo)["packed"].cpu()
+    b = extract_syncmers_ascii(torch.from_numpy(seq), torch.from_numpy(lens), K_MAIN, S_MAIN, mo)["packed"]
+    same_ascii = torch.equal(a, b) and int(b[0, mo]) > 0
+    log(f"[details] rows route (extract_hoco_rows, 64 x 16384) card equals CPU: {same_rows}; "
+        f"ASCII route (extract_syncmers_ascii, 64 x 15000) card equals CPU: {same_ascii}")
+    ok &= same_rows and same_ascii
+    res.update(ok=ok, dec_err=dec_err, max_abs_err=det_err)
+    return res
+
+
+# 32-bit operations of the details' own work, for K4's bound: the
+# nonzero test of every selection code; per selected window the s-mer's
+# codes (two shift-ors per base) and the payload (min, compare, select,
+# shift-or: about 12); per 32-base Murmur block the 2-bit pack (per
+# 4 bases a mask, a multiply, a shift and a 64-bit shift-or: 5) and the
+# mix (three 64-bit multiplies as 4 IMAD each, two 64-bit shift-xors,
+# the xor into h: 18)
+K4_OPS = {"code": 1, "window": 12, "smer_base": 4, "block": 40 + 18}
+
+
+def details_ops(n_codes: int, n_win: int, w: int, s: int) -> int:
+    nblk = -(-((w - 1) // 4 + 1) // 8)
+    return (n_codes * K4_OPS["code"]
+            + n_win * (K4_OPS["window"] + s * K4_OPS["smer_base"] + nblk * K4_OPS["block"]))
+
+
+def window_bytes(sel, Wd: int, w: int, max_out: int) -> int:
+    """Bytes of codes_padded [B, Wd] that the details must read: the union
+    of the first min(n_sel, max_out) selected windows (w codes from
+    column 1 + p of row b; windows never cross a row, and overlapping
+    ones count once)."""
+    import torch
+
+    flat = (sel.reshape(-1) != 0).nonzero()[:max_out, 0]
+    if not flat.numel():
+        return 0
+    L = sel.shape[1]
+    start = (flat // L) * Wd + flat % L  # ascending, as flat is
+    return w + int(torch.diff(start).clamp(max=w).sum())
+
+
+def details_timing(bt, cp, sel, B, Lp, n_cap, w, s, max_out, reps) -> dict:
+    """Median times (CUDA events) of the decode and details kernels at
+    one chunk, of their plain versions and of ``torch.nonzero`` on the
+    same ``sel``; each kernel's device time by launch (torch.profiler);
+    bounds: the bytes each must move (each input once, each output once;
+    for the details all of ``sel`` and only the selected windows of
+    ``codes_padded``, ``window_bytes``) over HBM_BPS, and the details'
+    operations (``K4_OPS``) over ALU_OPS."""
+    import torch
+
+    from oatk_tpu_torch.kernels import syncmer_details as SD
+
+    n_win = min(int((sel != 0).sum()), max_out)
+    dec_ms = median_ms(lambda: SD.decode_blob(bt, B, Lp, n_cap, w), reps)
+    dec_plain = median_ms(lambda: SD.decode_blob_plain(bt, B, Lp, n_cap, w), max(3, reps // 3))
+    det_ms = median_ms(lambda: SD.selected_details(cp, sel, w, s, max_out), reps)
+    det_plain = median_ms(lambda: SD.selected_details_plain(cp, sel, w, s, max_out), max(3, reps // 3))
+    nz_ms = median_ms(lambda: torch.nonzero(sel), reps)
+    by = {}
+    for name, us in profile_device(lambda: [SD.selected_details(cp, sel, w, s, max_out) for _ in range(5)]
+                                   + [SD.decode_blob(bt, B, Lp, n_cap, w) for _ in range(5)]):
+        key = kernel_name(name)
+        by[key] = by.get(key, 0.0) + us / 5
+    dec_bytes = B * Lp // 4 + 4 * B + 4 * n_cap + cp.numel()
+    win_bytes = window_bytes(sel, cp.shape[1], w, max_out)
+    det_bytes = 4 * sel.numel() + win_bytes + 24 * (max_out + 1)
+    det_ops = details_ops(sel.numel(), n_win, w, s)
+    dec_bound = 1000 * dec_bytes / HBM_BPS
+    det_bound = 1000 * max(det_bytes / HBM_BPS, det_ops / ALU_OPS)
+    det_by = "bytes" if det_bytes / HBM_BPS >= det_ops / ALU_OPS else "operations"
+    scan_us = sum(v for k, v in by.items() if k in ("sel_count_kernel", "sel_scan_kernel",
+                                                     "sel_compact_kernel"))
+    log(f"[details] decode at {B} x {Lp} (w={w}, n_cap={n_cap}): kernel {dec_ms:.4f} ms plain "
+        f"{dec_plain:.4f} ms (median, CUDA events); bound {dec_bound:.4f} ms by bytes ({dec_bytes} B), "
+        f"{100 * dec_bound / dec_ms:.1f}% of it")
+    log(f"[details] details at {B} x {Lp} (w={w} s={s}, {n_win} windows, max_out {max_out}): kernel "
+        f"{det_ms:.4f} ms plain {det_plain:.4f} ms (median, CUDA events); bound {det_bound:.4f} ms "
+        f"by {det_by} ({det_bytes} B, of them {win_bytes} B of selected windows, = "
+        f"{1000 * det_bytes / HBM_BPS:.4f} ms; {det_ops} operations = "
+        f"{1000 * det_ops / ALU_OPS:.4f} ms), {100 * det_bound / det_ms:.1f}% of it")
+    log("[details] device us per call by launch (torch.profiler, mean of 5): " + "; ".join(
+        f"{k} {v:.1f}" for k, v in sorted(by.items())))
+    log(f"[details] the scan passes (count, scan, compaction) {scan_us:.1f} us device beside "
+        f"torch.nonzero on the same sel {nz_ms * 1000:.1f} us (median, CUDA events; a yardstick "
+        f"for that part alone: nonzero also synchronises with the host)")
+    return dict(dec_ms=dec_ms, dec_plain_ms=dec_plain, dec_bound_ms=dec_bound,
+                ms=det_ms, plain_ms=det_plain, bound_ms=det_bound, bound_by=det_by,
+                nonzero_ms=nz_ms, device_us=by)
+
+
+def chunk_events(blob, B, Lp, n_cap, w, s, max_out, device) -> list:
+    """The device events of one loader chunk on the card (upload, the
+    extraction chain, the n_sel read), by torch.profiler."""
+    from oatk_tpu_torch.asm.reads import extract_chunk
+
+    extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device)  # warm
+    ev = profile_device(lambda: extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device))
+    log(f"[details] one loader chunk ({B} x {Lp}, w={w}): {len(ev)} device events: " + "; ".join(
+        f"{kernel_name(n)[:48]} {us:.1f} us" for n, us in ev))
+    return ev
+
+
+def details_loop() -> int:
+    """The short card loop for the decode and details kernels: build
+    them and the selection kernel, run their phase alone
+    (``python3 -c 'import chip_smoke as c; c.details_loop()'``)."""
+    from oatk_tpu_torch.kernels import syncmer_details as SD
+    from oatk_tpu_torch.kernels import syncmer_select as SS
+
+    build_kernels({"syncmer_select.cu": SS, "syncmer_details.cu": SD})
+    r = phase_details("cuda")
+    log(f"[details] ok={r['ok']} {json.dumps({k: v for k, v in r.items() if k not in ('ok', 'chunk_events')})}")
     return 0 if r["ok"] else 1
 
 
@@ -801,30 +1056,114 @@ def phase_parity(work: str) -> dict:
     return dict(ok=ok, sets=info)
 
 
-def phase_full(work: str) -> dict:
-    """The main path on the card at 110 Mbp, with the launch count."""
+def reset_counts() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from oatk_tpu_torch.kernels import syncmer_details as SD
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+
+    syncmer_select.launches = SD.decode_blob.launches = SD.selected_details.launches = 0
+
+
+def read_counts() -> dict:
+    """The launch counts of the selection, decode and details kernels."""
+    from oatk_tpu_torch.kernels import syncmer_details as SD
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+
+    return dict(launches=syncmer_select.launches, decode=SD.decode_blob.launches,
+                details=SD.selected_details.launches)
+
+
+@contextlib.contextmanager
+def nonzero_counter():
+    """Count calls of ``torch.nonzero`` and ``Tensor.nonzero`` for the
+    block: ``box["n"]`` in all, ``box["load"]`` inside the loader
+    (``asm.pipeline.load_and_extract``)."""
     import torch
 
-    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+    from oatk_tpu_torch.asm import pipeline as P
+
+    box = {"n": 0, "load": 0}
+    real_fn, real_m, real_load = torch.nonzero, torch.Tensor.nonzero, P.load_and_extract
+
+    def fn(*a, **kw):
+        box["n"] += 1
+        return real_fn(*a, **kw)
+
+    def method(self, *a, **kw):
+        box["n"] += 1
+        return real_m(self, *a, **kw)
+
+    def load(*a, **kw):
+        n0 = box["n"]
+        try:
+            return real_load(*a, **kw)
+        finally:
+            box["load"] += box["n"] - n0
+
+    torch.nonzero, torch.Tensor.nonzero, P.load_and_extract = fn, method, load
+    try:
+        yield box
+    finally:
+        torch.nonzero, torch.Tensor.nonzero, P.load_and_extract = real_fn, real_m, real_load
+
+
+# the extraction chain's kernels by their device names: K1, then the
+# decode and details of csrc/syncmer_details.cu
+DEVICE_KERNELS = ("syncmer_select_kernel", "blob_decode_kernel", "blob_n_scatter_kernel",
+                  "sel_count_kernel", "sel_scan_kernel", "sel_compact_kernel", "sel_details_kernel")
+
+
+def phase_full(work: str) -> dict:
+    """The main path on the card at 110 Mbp, with the launch counts, the
+    ``torch.nonzero`` calls inside the loader (must be 0), the loader's
+    main-thread extraction time, and one profiled run: each kernel's
+    summed device time and all device events."""
+    import torch
+
+    from oatk_tpu_torch.asm.pipeline import resolve_device
+    from oatk_tpu_torch.kernels import syncmer_details as SD
 
     fa, n_bp = dataset_110mbp(work)
     out = os.path.join(work, "full_110mbp")
+    dev = resolve_device("cuda")
+    with nonzero_counter() as probe:  # the counter sees the plain version's call
+        x = torch.zeros((1, 64), dtype=torch.uint8, device=dev)
+        SD.selected_details_plain(x, torch.ones((1, 64 - 18), dtype=torch.int32, device=dev), 15, 5, 8)
     torch.cuda.reset_peak_memory_stats()
-    syncmer_select.launches = 0
-    res, wall = run_syncasm(fa, K_MAIN, S_MAIN, 30, out, "cuda", ec=True, unzip=3)
-    launches = syncmer_select.launches
+    reset_counts()
+    with nonzero_counter() as nz:
+        res, wall = run_syncasm(fa, K_MAIN, S_MAIN, 30, out, "cuda", ec=True, unzip=3)
+    cnt = read_counts()
     peak = torch.cuda.max_memory_allocated()
     summ = gfa_summary(out + ".utg.final.gfa")
     stages = " ".join(f"{k}={v * 1000:.1f}ms" for k, v in (res.timings or {}).items())
+    lt = getattr(res.read_db, "load_timings", None) or {}
     log(f"[full] 110 Mbp ({n_bp} bp) k={K_MAIN} s={S_MAIN} c=30 EC on, 3 unzip rounds: "
         f"wall {wall:.3f} s ({n_bp / 1e6 / wall:.3f} Mbp/s)")
     log(f"[full] [T::syncasm] {stages}")
-    log(f"[full] syncmer_select launches={launches} max_memory_allocated={peak} B")
+    log("[full] load stage split: " + " ".join(f"load.{k}={v * 1000:.1f}ms" for k, v in lt.items()))
+    log(f"[full] syncmer_select launches={cnt['launches']} decode launches={cnt['decode']} "
+        f"details launches={cnt['details']} max_memory_allocated={peak} B")
+    log(f"[full] torch.nonzero calls: {nz['load']} in the loader, {nz['n']} in the whole run "
+        f"(the counter's self-check on the plain version: {probe['n']})")
     log(f"[full] .utg.final.gfa: S={summ['S']} L={summ['L']} seg_bp={summ['seg_bp']} "
         f"sha256={summ['sha256']}")
-    ok = launches > 0 and summ["S"] > 0 and res.scg is not None
-    return dict(ok=ok, launches=launches, fa=fa, n_bp=n_bp, sha256=summ["sha256"],
-                read_db=res.read_db, timings=res.timings or {}, out=out, wall=wall)
+    prof_out = os.path.join(work, "full_110mbp_prof")
+    ev = profile_device(lambda: run_syncasm(fa, K_MAIN, S_MAIN, 30, prof_out, "cuda", ec=True, unzip=3))
+    by = {}
+    for name, us in ev:
+        key = next((k for k in DEVICE_KERNELS if k in name), "other")
+        n, t = by.get(key, (0, 0.0))
+        by[key] = (n + 1, t + us)
+    same_prof = gfa_summary(prof_out + ".utg.final.gfa")["sha256"] == summ["sha256"]
+    log(f"[full] profiled run: {len(ev)} device events, {sum(us for _, us in ev):.1f} us in all; "
+        + "; ".join(f"{k} {n} x {t:.1f} us" for k, (n, t) in by.items())
+        + f"; the chain without K1 {sum(by.get(k, (0, 0))[1] for k in DEVICE_KERNELS[1:]):.1f} us; "
+        f"GFA equal to the run above: {same_prof}")
+    ok = (cnt["launches"] > 0 and cnt["decode"] > 0 and cnt["details"] > 0 and nz["load"] == 0
+          and probe["n"] > 0 and summ["S"] > 0 and res.scg is not None and same_prof)
+    return dict(ok=ok, fa=fa, n_bp=n_bp, sha256=summ["sha256"], read_db=res.read_db,
+                timings=res.timings or {}, out=out, wall=wall, extract_s=lt.get("extract"), **cnt)
 
 
 FAKE_NHMMSCAN = """#!/bin/bash
@@ -1083,7 +1422,6 @@ def phase_capped(work: str, fa: str, n_reads_full: int, cap: str = "55M") -> dic
 
     from oatk_tpu_torch.cli._common import parse_data_size
     from oatk_tpu_torch.cli.syncasm import main as syncasm_main
-    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
     runs = {}
     for dev in ("cuda", "cpu"):
@@ -1092,10 +1430,10 @@ def phase_capped(work: str, fa: str, n_reads_full: int, cap: str = "55M") -> dic
                 "--device", dev, "-o", out]
         if dev == "cuda":
             torch.cuda.reset_peak_memory_stats()
-            syncmer_select.launches = 0
+            reset_counts()
         r = run_cli(syncasm_main, argv)
         if dev == "cuda":
-            r.update(launches=syncmer_select.launches, peak=torch.cuda.max_memory_allocated())
+            r.update(**read_counts(), peak=torch.cuda.max_memory_allocated())
         r["out"] = out
         runs[dev] = r
         log(f"[capped] -D {cap} --device {dev}: rc={r['rc']} wall {r['wall']:.3f} s, "
@@ -1105,40 +1443,41 @@ def phase_capped(work: str, fa: str, n_reads_full: int, cap: str = "55M") -> dic
     limit = (f"[M::sr_read] data limit ({parse_data_size(cap)}) reached. "
              "Discard the remaining sequences...")
     if any(r["rc"] != 0 for r in runs.values()):
-        return dict(ok=False, launches=c["launches"])
+        return dict(ok=False, launches=c["launches"], decode=c["decode"], details=c["details"])
     ok = all(limit in r["text"] for r in runs.values())
     ok &= 0 < c["n_reads"] < n_reads_full and c["n_reads"] == runs["cpu"]["n_reads"]
     ok &= same_gfas("capped", c["out"], runs["cpu"]["out"])
     log(f"[capped] card run: data-limit line={limit in c['text']} syncmer_select "
-        f"launches={c['launches']} max_memory_allocated={c['peak']} B")
-    ok &= c["launches"] > 0
-    return dict(ok=ok, launches=c["launches"])
+        f"launches={c['launches']} decode launches={c['decode']} details launches={c['details']} "
+        f"max_memory_allocated={c['peak']} B")
+    ok &= c["launches"] > 0 and c["decode"] > 0 and c["details"] > 0
+    return dict(ok=ok, launches=c["launches"], decode=c["decode"], details=c["details"])
 
 
 def phase_host_count(work: str, full: dict, parity: dict) -> dict:
     """OATK_TPU_COUNT=host on the card at 110 and 9.9 Mbp: the final GFA
     equals the device-count run's; load and collect_db beside it."""
-    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
     p10 = parity["sets"]["10mbp"]
     cases = [("110mbp", full["fa"], (K_MAIN, S_MAIN, 30), full["sha256"], full["timings"]),
              ("10mbp", p10["fa"], p10["ksc"], p10["sha"][".utg.final.gfa"], p10["timings"])]
-    ok, launches = True, {}
+    ok, launches, counts = True, {}, {}
     for name, fa, (k, s, c), ref_sha, ref_tm in cases:
         out = os.path.join(work, f"hostcount_{name}")
-        syncmer_select.launches = 0
+        reset_counts()
         with env_set(OATK_TPU_COUNT="host"):
             res, wall = run_syncasm(fa, k, s, c, out, "cuda")
-        launches[name] = syncmer_select.launches
+        counts[name] = read_counts()
+        launches[name] = counts[name]["launches"]
         sha = gfa_summary(out + ".utg.final.gfa")["sha256"]
         same = sha == ref_sha
         # collect_syncmer_db keeps the device count state it consumed
         ok &= same and launches[name] > 0 and not hasattr(res.read_db, "_devcount_stats")
         log(f"[hostcount] {name}: wall {wall:.3f} s; .utg.final.gfa equals the device-count "
-            f"run's: {same} (sha256 {sha[:16]}); syncmer_select launches={launches[name]}")
+            f"run's: {same} (sha256 {sha[:16]}); launches {counts[name]}")
         log(f"[hostcount] {name}: host count {stage_ms(res.timings or {}, 'load', 'collect_db')}; "
             f"device count {stage_ms(ref_tm, 'load', 'collect_db')}")
-    return dict(ok=ok, launches=launches["110mbp"])
+    return dict(ok=ok, **counts["110mbp"])
 
 
 def phase_device_hoco(work: str, full: dict) -> dict:
@@ -1148,8 +1487,6 @@ def phase_device_hoco(work: str, full: dict) -> dict:
     import torch
 
     from oatk_tpu_torch.asm.consensus import _resolve_rl_m1
-    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
-
     from oatk_tpu_torch.kernels import syncmer as KS
 
     real_hoco, hoco_ms = KS.hoco_phase, []
@@ -1161,14 +1498,15 @@ def phase_device_hoco(work: str, full: dict) -> dict:
 
     out = os.path.join(work, "devhoco_110mbp")
     torch.cuda.reset_peak_memory_stats()
-    syncmer_select.launches = 0
+    reset_counts()
     KS.hoco_phase = timed_hoco
     try:
         with env_set(OATK_TPU_DEVICE_HOCO="1"):
             res, wall = run_syncasm(full["fa"], K_MAIN, S_MAIN, 30, out, "cuda")
     finally:
         KS.hoco_phase = real_hoco
-    launches = syncmer_select.launches
+    cnt = read_counts()
+    launches = cnt["launches"]
     peak = torch.cuda.max_memory_allocated()
     sha = gfa_summary(out + ".utg.final.gfa")["sha256"]
     nat, dh = full["read_db"], res.read_db
@@ -1184,13 +1522,13 @@ def phase_device_hoco(work: str, full: dict) -> dict:
     log(f"[devhoco] 110 Mbp: wall {wall:.3f} s, {stage_ms(res.timings or {}, 'load', 'collect_db')} "
         f"(native host hoco, phase 6: {stage_ms(full['timings'], 'load', 'collect_db')})")
     log(f"[devhoco] bytes uploaded {dh.upload_bytes} B; max_memory_allocated={peak} B; "
-        f"syncmer_select launches={launches}")
+        f"syncmer_select launches={launches} details launches={cnt['details']}")
     log("[devhoco] hoco_phase per chunk (CUDA events): " + "; ".join(
         f"{b}x{n} {ms:.3f} ms" for (b, n), ms in hoco_ms))
     log(f"[devhoco] reads {dh.n} (native {nat.n}); reads whose hoco codes, run lengths or "
         f"N flags differ: {bad}; .utg.final.gfa equals phase 6's: {same_gfa}")
-    ok = same_gfa and bad == 0 and dh.n == nat.n and launches > 0
-    return dict(ok=ok, launches=launches)
+    ok = same_gfa and bad == 0 and dh.n == nat.n and launches > 0 and cnt["details"] > 0
+    return dict(ok=ok, launches=launches, details=cnt["details"])
 
 
 def write_mixed(src: str, dst: str) -> int:
@@ -1213,7 +1551,6 @@ def phase_mixed(work: str, parity: dict) -> dict:
     """A mixed FASTA/FASTQ file on the card and the CPU: the native
     loader returns None, the Python reader's route extracts, GFAs equal."""
     from oatk_tpu_torch.asm import pipeline as P
-    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
     p10 = parity["sets"]["10mbp"]
     fa = os.path.join(work, "set_10mbp_mixed.fa")
@@ -1228,31 +1565,31 @@ def phase_mixed(work: str, parity: dict) -> dict:
         return db
 
     def extract(*a, **kw):
-        n0 = syncmer_select.launches
+        n0 = read_counts()
         db = real_extract(*a, **kw)
-        seen["reader_launches"] = syncmer_select.launches - n0
+        seen["reader"] = {k: v - n0[k] for k, v in read_counts().items()}
         return db
 
     P.load_and_extract, P.extract_all_syncmers = load, extract
-    outs, ok, launches = {}, True, 0
+    outs, ok, cnt = {}, True, dict(launches=0, decode=0, details=0)
     try:
         for dev in ("cuda", "cpu"):
             seen.clear()
-            syncmer_select.launches = 0
+            reset_counts()
             outs[dev] = os.path.join(work, f"mixed_{dev}")
             _res, wall = run_syncasm(fa, k, s, c, outs[dev], dev)
-            ok &= "loader" in seen and seen["loader"] is None and "reader_launches" in seen
+            ok &= "loader" in seen and seen["loader"] is None and "reader" in seen
             if dev == "cuda":
-                launches = seen.get("reader_launches", 0)
+                cnt = seen.get("reader", cnt)
             log(f"[mixed] {n} records, every other FASTQ, --device {dev}: wall {wall:.3f} s; "
                 f"native loader returned None: {'loader' in seen and seen['loader'] is None}; "
-                f"Python reader ran: {'reader_launches' in seen}")
+                f"Python reader ran: {'reader' in seen}")
     finally:
         P.load_and_extract, P.extract_all_syncmers = real_load, real_extract
     ok &= same_gfas("mixed", outs["cuda"], outs["cpu"])
-    log(f"[mixed] card run: syncmer_select launches in the Python reader's route={launches}")
-    ok &= launches > 0
-    return dict(ok=ok, launches=launches)
+    log(f"[mixed] card run: launches in the Python reader's route {cnt}")
+    ok &= cnt["launches"] > 0 and cnt["decode"] > 0 and cnt["details"] > 0
+    return dict(ok=ok, **cnt)
 
 
 CONSENSUS_STAGES = ("utg_gfa", "unzip_consensus", "final_gfa")
@@ -1394,27 +1731,27 @@ def phase_shards1(work: str, full: dict) -> dict:
     import torch
 
     from oatk_tpu_torch.cli.syncasm import main as syncasm_main
-    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
-    ok, launches = True, 0
+    ok, cnt = True, dict(launches=0, details=0)
     for dev in ("cuda", "cpu"):
         out = os.path.join(work, f"shards1_{dev}")
         argv = [full["fa"], "-k", str(K_MAIN), "-s", str(S_MAIN), "-c", "30", "--shards", "1",
                 "--device", dev, "-o", out]
         if dev == "cuda":
             torch.cuda.reset_peak_memory_stats()
-            syncmer_select.launches = 0
+            reset_counts()
         r = run_cli(syncasm_main, argv)
         if dev == "cuda":
-            launches = syncmer_select.launches
-            log(f"[shards1] card: syncmer_select launches={launches} "
-                f"max_memory_allocated={torch.cuda.max_memory_allocated()} B")
+            cnt = read_counts()
+            log(f"[shards1] card: syncmer_select launches={cnt['launches']} details launches="
+                f"{cnt['details']} max_memory_allocated={torch.cuda.max_memory_allocated()} B")
         log(f"[shards1] --shards 1 --device {dev}: rc={r['rc']} wall {r['wall']:.3f} s "
             f"(phase 6, one device: {full['wall']:.3f} s)")
         log(f"[shards1] --device {dev} {r['stages']}")
         log(f"[shards1] phase 6: {stage_ms(full['timings'], 'load', 'collect_db')}")
         ok &= r["rc"] == 0 and same_as_full("shards1", out, full)
-    return dict(ok=ok and launches > 0, launches=launches)
+    return dict(ok=ok and cnt["launches"] > 0 and cnt["details"] > 0, launches=cnt["launches"],
+                details=cnt["details"])
 
 
 def phase_mesh(work: str, full: dict) -> dict:
@@ -1438,10 +1775,10 @@ def phase_mesh(work: str, full: dict) -> dict:
     torch.cuda.synchronize()
     log(f"[mesh] single device: load + collect_db {time.perf_counter() - t0:.3f} s, "
         f"{ref_scm.n} syncmers over {ref.total_syncmers()} occurrences")
-    ok, launches = True, {}
+    ok, launches, details = True, {}, {}
     for n in (4, 5):
         torch.cuda.reset_peak_memory_stats()
-        syncmer_select.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         db, coll = load_and_extract_sharded([full["fa"]], K_MAIN, S_MAIN, Mesh(["cuda:0"] * n))
         torch.cuda.synchronize()
@@ -1449,39 +1786,41 @@ def phase_mesh(work: str, full: dict) -> dict:
         scm = coll.build(db)
         t2 = time.perf_counter()
         launches[f"mesh{n}"] = syncmer_select.launches
+        details[f"mesh{n}"] = read_counts()["details"]
         bad = [r1.sid for r1, r2 in zip(ref.reads, db.reads)
                if not all(np.array_equal(getattr(r1, f), getattr(r2, f))
                           for f in ("m_pos", "s_mer", "k_mer"))]
         same = (db.n == ref.n and not bad and scm.n == ref_scm.n and all(
             np.array_equal(getattr(scm, f), getattr(ref_scm, f))
             for f in ("h", "s", "cov", "mp_flat", "mp_off")))
-        ok &= same and launches[f"mesh{n}"] > 0
+        ok &= same and launches[f"mesh{n}"] > 0 and details[f"mesh{n}"] > 0
         log(f"[mesh] {n} shards on cuda:0: load+route {t1 - t0:.3f} s, build {t2 - t1:.3f} s, "
             f"{coll.n_steps} batches, syncmer_select launches={launches[f'mesh{n}']}, "
+            f"details launches={details[f'mesh{n}']}, "
             f"max_memory_allocated={torch.cuda.max_memory_allocated()} B")
         log(f"[mesh] {n} shards: occurrences per shard {coll.occ_per_shard}, "
             f"exchange {coll.exchange_bytes} B of (hash, low) pairs off their shard")
         log(f"[mesh] {n} shards: ReadDB and SyncmerDB equal the single device's: {same} "
             f"(reads that differ: {len(bad)})")
-    return dict(ok=ok, launches=launches)
+    return dict(ok=ok, launches=launches, details=details)
 
 
 def phase_stage_shards(work: str, full: dict) -> dict:
     """``--shards 1`` with OATK_TPU_STAGE_SHARDS=4 at 110 Mbp on the card:
     alignment and EC in 4 read blocks, merged; both GFAs equal phase 6's."""
     from oatk_tpu_torch.cli.syncasm import main as syncasm_main
-    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
     out = os.path.join(work, "stageshards_110mbp")
-    syncmer_select.launches = 0
+    reset_counts()
     with env_set(OATK_TPU_STAGE_SHARDS="4"):
         r = run_cli(syncasm_main, [full["fa"], "-k", str(K_MAIN), "-s", str(S_MAIN), "-c", "30",
                                    "--shards", "1", "--device", "cuda", "-o", out])
-    launches = syncmer_select.launches
+    cnt = read_counts()
     log(f"[stageshards] OATK_TPU_STAGE_SHARDS=4 --shards 1: rc={r['rc']} wall {r['wall']:.3f} s; "
-        f"{r['stages']}")
+        f"syncmer_select launches={cnt['launches']} details launches={cnt['details']}; {r['stages']}")
     ok = r["rc"] == 0 and same_as_full("stageshards", out, full)
-    return dict(ok=ok and launches > 0, launches=launches)
+    return dict(ok=ok and cnt["launches"] > 0 and cnt["details"] > 0, launches=cnt["launches"],
+                details=cnt["details"])
 
 
 def chunk_rows(fa: str, n_rows: int):
@@ -1515,30 +1854,31 @@ def phase_k11(work: str, full: dict, n_rows: int = 2048) -> dict:
     from oatk_tpu_torch.asm.reads import _round_up
     from oatk_tpu_torch.dist.sharding import Mesh, sharded_extract_count_step
     from oatk_tpu_torch.kernels.syncmer import extract_syncmers_ascii
-    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
     seq, lens = chunk_rows(full["fa"], n_rows)
     max_out = _round_up(seq.size // 64, 1024)
-    syncmer_select.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     nd, hist, n_sel, ndrop = sharded_extract_count_step(
         seq, lens, K_MAIN, S_MAIN, max_out, Mesh(["cuda:0"] * 4))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = syncmer_select.launches
+    cnt = read_counts()
+    launches = cnt["launches"]
     pk = extract_syncmers_ascii(torch.from_numpy(seq).cuda(), torch.from_numpy(lens).cuda(),
                                 K_MAIN, S_MAIN, max_out)["packed"]
     n = int(pk[0, max_out])
     _, counts = np.unique(pk[2, :n].cpu().numpy().view(np.uint64), return_counts=True)
     want = np.bincount(np.clip(counts, 0, 63), minlength=64)
     ok = (int(n_sel.sum()) == n <= max_out and int(nd.sum()) == len(counts)
-          and (hist == want).all() and not ndrop.any() and launches > 0)
+          and (hist == want).all() and not ndrop.any() and launches > 0 and cnt["details"] > 0)
     log(f"[k11] {seq.shape[0]} x {seq.shape[1]} ASCII rows, 4 shards on cuda:0: {wall:.3f} s, "
-        f"syncmer_select launches={launches}; n_sel per shard {n_sel.tolist()}, "
+        f"syncmer_select launches={launches} details launches={cnt['details']}; "
+        f"n_sel per shard {n_sel.tolist()}, "
         f"n_distinct per shard {nd.tolist()}, n_dropped {ndrop.tolist()}")
     log(f"[k11] equal to numpy over the single-device extraction ({n} selections, "
         f"{len(counts)} distinct): {ok}")
-    return dict(ok=ok, launches=launches)
+    return dict(ok=ok, launches=launches, details=cnt["details"])
 
 
 def build_kernels(mods: dict) -> None:
@@ -1577,6 +1917,7 @@ def main() -> int:
     try:
         import genome_sim  # noqa: F401  (dataset generator)
 
+        from oatk_tpu_torch.kernels import syncmer_details as SD
         from oatk_tpu_torch.kernels import syncmer_select as SS
         from oatk_tpu_torch.kernels import wf_ed as WE
     except ImportError as e:
@@ -1591,10 +1932,12 @@ def main() -> int:
     os.makedirs(WORK, exist_ok=True)
     ok = True
 
-    build_kernels({"syncmer_select.cu": SS, "wf_ed.cu": WE})
+    build_kernels({"syncmer_select.cu": SS, "wf_ed.cu": WE, "syncmer_details.cu": SD})
 
     kern = phase_kernel("cuda")
     ok &= kern["ok"]
+    det = phase_details("cuda")
+    ok &= det["ok"]
     wf = phase_wf("cuda")
     ok &= wf["ok"]
     parity = phase_parity(WORK)
@@ -1603,7 +1946,7 @@ def main() -> int:
     ok &= full["ok"]
     oatk = phase_oatk(WORK, full["fa"], full["n_bp"], full["sha256"])
     ok &= oatk["ok"]
-    routes = {}
+    routes = {"select": {}, "decode": {}, "details": {}}
     for name, fn in (
         ("capped", lambda: phase_capped(WORK, full["fa"], full["read_db"].n)),
         ("host_count", lambda: phase_host_count(WORK, full, parity)),
@@ -1621,19 +1964,23 @@ def main() -> int:
         r = fn()
         log(f"[phase] {name}: ok={r['ok']} in {time.perf_counter() - t0:.3f} s")
         ok &= r["ok"]
-        if isinstance(r.get("launches"), dict):
-            routes.update(r["launches"])
-        elif "launches" in r:
-            routes[name] = r["launches"]
+        for key, into in (("launches", routes["select"]), ("decode", routes["decode"]),
+                          ("details", routes["details"])):
+            if isinstance(r.get(key), dict):
+                into.update(r[key])
+            elif key in r:
+                into[name] = r[key]
 
-    # no single PyTorch call computes either function: library_ms is null
+    # no single PyTorch call computes any of these functions: library_ms
+    # is null (torch.nonzero's time on the same sel, a yardstick for the
+    # details' scan passes alone, is nonzero_ms)
     kernels = {"kernels": [{
         "name": "syncmer_select",
         "route": "cuda",
         "source": "oatk_tpu_torch/csrc/syncmer_select.cu",
         "replaces": "oatk_tpu/kernels/syncmer_pallas.py:401",
         "launches": full["launches"],
-        "launches_by_route": routes,
+        "launches_by_route": routes["select"],
         "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"],
         "plain_ms": kern["plain_ms"],
@@ -1654,6 +2001,33 @@ def main() -> int:
         "bound_ms": wf["bound_ms"],
         "bound_by": wf["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "syncmer_decode",
+        "route": "cuda",
+        "source": "oatk_tpu_torch/csrc/syncmer_details.cu",
+        "replaces": "oatk_tpu/kernels/syncmer.py:598",
+        "launches": full["decode"],
+        "launches_by_route": routes["decode"],
+        "max_abs_err": det["dec_err"],
+        "ms": det["dec_ms"],
+        "plain_ms": det["dec_plain_ms"],
+        "bound_ms": det["dec_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+    }, {
+        "name": "syncmer_details",
+        "route": "cuda",
+        "source": "oatk_tpu_torch/csrc/syncmer_details.cu",
+        "replaces": "oatk_tpu/kernels/syncmer.py:419",
+        "launches": full["details"],
+        "launches_by_route": routes["details"],
+        "max_abs_err": det["max_abs_err"],
+        "ms": det["ms"],
+        "plain_ms": det["plain_ms"],
+        "bound_ms": det["bound_ms"],
+        "bound_by": det["bound_by"],
+        "library_ms": None,
+        "nonzero_ms": det["nonzero_ms"],
     }]}
     if not ok:
         log("[done] a phase failed")

@@ -87,6 +87,12 @@ def _sel_divisor(w: int, s: int) -> int:
     return max(4, (w - s) // 2 if w >= 500 else (w - s) // 3)
 
 
+def _capacity(B: int, Lp: int, w: int, s: int) -> int:
+    """Starting extraction capacity (max_out) of a chunk of B x Lp
+    positions."""
+    return _round_up(max(1024, int(B * Lp / _sel_divisor(w, s))), 1024)
+
+
 def _bucket_len(L: int) -> int:
     """Padded row length for a read: powers of two up to 4096, then
     multiples of 2048 (padding waste is uploaded and scanned, so the
@@ -115,8 +121,7 @@ def _chunks_of(lengths, w: int, s: int, batch_bases: int):
         for start in range(0, len(idxs), bsz):
             chunk = idxs[start : start + bsz]
             B = _pad_rows(len(chunk), bsz)
-            max_out = _round_up(max(1024, int(B * Lp / _sel_divisor(w, s))), 1024)
-            yield chunk, B, Lp, max_out
+            yield chunk, B, Lp, _capacity(B, Lp, w, s)
 
 
 _false_buf = np.zeros(1 << 14, bool)
@@ -197,26 +202,31 @@ def _pack_chunks(res, n_reads: int, w: int, s: int, batch_bases: int):
         # sparse ambiguous positions straight from the parser (parse-local
         # coordinates, same as offs)
         n_pos = _chunk_n_positions(isn_idx, st, en, Lp)
-        n_cap = 0 if not len(n_pos) else _round_up(max(64, len(n_pos)), 1024)
         # one blob = one upload; the packed grid / lengths / N
         # positions are written straight into their blob slices
-        blob, packed, hl, n_arr = _new_blob(B, Lp, n_cap)
+        blob, packed, hl, n_cap = chunk_blob(B, Lp, n_pos)
         native.pack_rows_gather(codes, st, en, Lp // 4, out=packed)
         hl[: len(chunk)] = (en - st).astype(np.int32)
-        n_arr[: len(n_pos)] = n_pos
         chunks.append((chunk, B, Lp, max_out, n_cap, blob))
     return chunks
 
 
-def _new_blob(B: int, Lp: int, n_cap: int):
-    """Zeroed upload blob [packed B x Lp/4 | hoco lengths i32[B] | N
-    positions i32[n_cap]] and its three views (unused N slots hold the
-    drop sentinel B*Lp)."""
+def chunk_blob(B: int, Lp: int, n_pos, n_cap: int | None = None):
+    """One chunk's zeroed upload blob [packed B x Lp/4 | hoco lengths
+    i32[B] | N positions i32[n_cap]] with the N positions ``n_pos``
+    (row-local slots bi*Lp + p, ascending) written in and the unused N
+    slots holding the drop sentinel B*Lp.  ``n_cap`` defaults to the
+    loader's: 0 without Ns, else len(n_pos) rounded up to a multiple of
+    1024.  Returns (blob, packed view [B, Lp/4], hoco-length view i32[B],
+    n_cap)."""
+    if n_cap is None:
+        n_cap = 0 if not len(n_pos) else _round_up(max(64, len(n_pos)), 1024)
     pk_b = B * (Lp // 4)
     blob = np.zeros(pk_b + 4 * B + 4 * n_cap, np.uint8)
     n_arr = blob[pk_b + 4 * B :].view(np.int32)
     n_arr[:] = B * Lp
-    return blob, blob[:pk_b].reshape(B, Lp // 4), blob[pk_b : pk_b + 4 * B].view(np.int32), n_arr
+    n_arr[: len(n_pos)] = n_pos
+    return blob, blob[:pk_b].reshape(B, Lp // 4), blob[pk_b : pk_b + 4 * B].view(np.int32), n_cap
 
 
 def _parse_pack_segment(
@@ -320,13 +330,11 @@ def extract_all_syncmers(
         n_pos = np.concatenate(
             [bi * Lp + np.flatnonzero(hoco[ri][2]) for bi, ri in enumerate(chunk)]
         )
-        n_cap = 0 if not len(n_pos) else _round_up(max(64, len(n_pos)), 1024)
-        blob, packed, hl, n_arr = _new_blob(B, Lp, n_cap)
+        blob, packed, hl, n_cap = chunk_blob(B, Lp, n_pos)
         for bi, ri in enumerate(chunk):
             code = hoco[ri][0]
             packed[bi, : (len(code) + 3) // 4] = pack_hoco(code)
             hl[bi] = len(code)
-        n_arr[: len(n_pos)] = n_pos
         pk, n_sel, _mo = extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device)
         _set_rows(db.reads, chunk, _host_rows(pk, n_sel, B, Lp), len(records))
         up += blob.nbytes

@@ -1,0 +1,275 @@
+"""The extraction chain around the selection kernel: the upload blob's
+decode (K3d) and the ordered compaction with the per-selected details
+(K4), each as a hand-written CUDA kernel with its build, binding and
+plain PyTorch version.
+
+Counterparts of two parts of the JAX package's one device program per
+chunk (``oatk_tpu/kernels/syncmer.py:extract_hoco_fused_pallas``): the
+blob decode and N mark of ``_extract_hoco_packed_impl`` and
+``_selected_details``.  The kernel source is ``csrc/syncmer_details.cu``
+(its header notes the design and what bounds it), compiled at first use
+with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into the git-ignored
+``build/kernels/`` directory at the repository root and loaded with
+ctypes.
+
+- :func:`decode_blob`: the blob ``[B*Lp/4 | hl i32[B] | n_pos i32[n_cap]]``
+  -> the selection kernel's input ``codes_padded`` uint8
+  ``[B, 1+Lp+w+2]`` (0-3 a base, 4 an N, 5 pad and past each read's end).
+- :func:`selected_details`: ``codes_padded`` and the selection codes
+  ``sel`` int32 ``[B, L]`` -> the packed int64 ``[3, max_out+1]``: row 0
+  ``flat<<1|z`` (flat = b*L + p, ascending), row 1 the s-mer payload,
+  row 2 the Murmur k-mer hash; slot ``[0, max_out]`` the exact n_sel,
+  lanes at or past min(n_sel, max_out) 0.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises, nothing falls back.  ``decode_blob.launches`` and
+``selected_details.launches`` count kernel launches (the decode makes
+two when the blob holds N positions, the details four: tile counts,
+their scan, the compaction, the details), and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+import threading
+
+import torch
+
+from .._u64 import as_i64, srl
+from . import cuda_build
+from .hashes import MURMUR_SEED
+
+_SRC = cuda_build.source("syncmer_details.cu")
+_SO = f"{cuda_build.SO_DIR}/libsyncmer_details.so"
+
+_MURMUR_M = as_i64(0xC6A4A7935BD1E995)
+_SHIFTS = (6, 4, 2, 0)
+DETAILS_LAUNCHES = 4  # count, scan, compaction, details
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def build() -> str:
+    """Compile the kernels if needed; returns the compiler's report."""
+    return cuda_build.build(_SRC, _SO)
+
+
+def _load():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            build()
+            lib = ctypes.CDLL(_SO)
+            lib.syncmer_decode_launch.restype = ctypes.c_int
+            lib.syncmer_decode_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ]
+            lib.syncmer_details_launch.restype = ctypes.c_int
+            lib.syncmer_details_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_longlong, ctypes.c_void_p,
+            ]
+            lib.syncmer_details_tiles.restype = ctypes.c_longlong
+            lib.syncmer_details_tiles.argtypes = [ctypes.c_longlong]
+            _lib = lib
+    return _lib
+
+
+def _device_of(name: str, *tensors: torch.Tensor) -> str:
+    """'cpu' or 'cuda' for tensors that share one device; raises for any
+    other device or a mix."""
+    dev = tensors[0].device
+    if any(t.device != dev for t in tensors[1:]):
+        raise ValueError(f"{name}: tensors on different devices")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type
+
+
+def _check_blob(blob: torch.Tensor, B: int, Lp: int, n_cap: int, w: int) -> None:
+    if blob.dtype != torch.uint8 or blob.dim() != 1:
+        raise TypeError(f"decode_blob: blob must be 1-D uint8, got {blob.dtype} {tuple(blob.shape)}")
+    if not blob.is_contiguous():
+        raise ValueError("decode_blob: blob must be contiguous")
+    if B < 0 or Lp < 0 or (B * Lp) % 16 or n_cap < 0 or w < 1:
+        # B*Lp/4 packed bytes, a multiple of 4: the int32 fields that
+        # follow are 4-byte aligned in the blob
+        raise ValueError(f"decode_blob: bad sizes B={B} Lp={Lp} n_cap={n_cap} w={w}")
+    need = B * Lp // 4 + 4 * B + 4 * n_cap
+    if blob.numel() < need:
+        raise ValueError(f"decode_blob: blob of {blob.numel()} B is shorter than {need} B")
+
+
+def decode_blob(blob: torch.Tensor, B: int, Lp: int, n_cap: int, w: int) -> torch.Tensor:
+    """``codes_padded`` uint8 ``[B, 1+Lp+w+2]`` from an upload blob."""
+    _check_blob(blob, B, Lp, n_cap, w)
+    if _device_of("decode_blob", blob) == "cpu":
+        return decode_blob_plain(blob, B, Lp, n_cap, w)
+    if blob.data_ptr() % 4:
+        raise ValueError("decode_blob: a CUDA blob must start 4-byte aligned (its int32 fields)")
+    lib = _load()
+    out = torch.empty((B, 1 + Lp + w + 2), dtype=torch.uint8, device=blob.device)
+    if B == 0:
+        return out  # nothing to launch
+    with torch.cuda.device(blob.device):
+        rc = lib.syncmer_decode_launch(blob.data_ptr(), out.data_ptr(), B, Lp, n_cap, w,
+                                       torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"syncmer decode kernel launch failed: CUDA error {rc}")
+    decode_blob.launches += 2 if n_cap else 1
+    return out
+
+
+decode_blob.launches = 0
+
+
+def decode_blob_plain(blob: torch.Tensor, B: int, Lp: int, n_cap: int, w: int) -> torch.Tensor:
+    """Plain PyTorch version of the decode: unpack, 5 past each read's
+    end, 4 at every N position (the pad entries B*Lp land in a spare slot
+    that is dropped), pad columns."""
+    dev = blob.device
+    np_ = B * Lp // 4
+    packed = blob[:np_].view(B, Lp // 4)
+    hl = blob[np_ : np_ + 4 * B].view(torch.int32)
+    n_pos = blob[np_ + 4 * B : np_ + 4 * B + 4 * n_cap].view(torch.int32)
+
+    sh = torch.tensor(_SHIFTS, dtype=torch.uint8, device=dev)
+    codes = ((packed.unsqueeze(2) >> sh) & 3).view(B, Lp)
+    pos = torch.arange(Lp, dtype=torch.int32, device=dev)
+    codes = torch.where(pos < hl.unsqueeze(1), codes, 5).to(torch.uint8)
+    sel_in = torch.cat([codes.view(-1), codes.new_zeros(1)])
+    if n_cap:
+        sel_in[n_pos.long()] = 4
+    sel_in = sel_in[: B * Lp].view(B, Lp)
+    five = codes.new_full((B, 1), 5)
+    return torch.cat([five, sel_in, five.expand(B, w + 2)], dim=1)
+
+
+def _check_details(codes_padded: torch.Tensor, sel: torch.Tensor, w: int, s: int,
+                   max_out: int) -> tuple[int, int]:
+    """Validate the arguments; returns (B, L)."""
+    if codes_padded.dtype != torch.uint8 or sel.dtype != torch.int32:
+        raise TypeError(f"selected_details: need uint8 codes_padded and int32 sel, got "
+                        f"{codes_padded.dtype} and {sel.dtype}")
+    if codes_padded.dim() != 2 or sel.dim() != 2:
+        raise ValueError(f"selected_details: need 2-D tensors, got {tuple(codes_padded.shape)} "
+                         f"and {tuple(sel.shape)}")
+    if not 1 <= s <= 31 or w < s:
+        raise ValueError(f"need 1 <= s <= 31 and w >= s, got w={w} s={s}")
+    B, L = sel.shape
+    if tuple(codes_padded.shape) != (B, 1 + L + w + 2):
+        raise ValueError(f"selected_details: codes_padded {tuple(codes_padded.shape)} does not "
+                         f"match sel {(B, L)} at w={w} (need [B, 1+L+w+2])")
+    if not codes_padded.is_contiguous() or not sel.is_contiguous():
+        raise ValueError("selected_details: codes_padded and sel must be contiguous")
+    if max_out < 0:
+        raise ValueError(f"selected_details: max_out={max_out}")
+    return B, L
+
+
+def selected_details(codes_padded: torch.Tensor, sel: torch.Tensor, w: int, s: int,
+                     max_out: int) -> torch.Tensor:
+    """Packed int64 ``[3, max_out+1]`` of the selected positions."""
+    B, L = _check_details(codes_padded, sel, w, s, max_out)
+    if _device_of("selected_details", codes_padded, sel) == "cpu":
+        return selected_details_plain(codes_padded, sel, w, s, max_out)
+    if B * L == 0:
+        # nothing selected: the plain version allocates and fills the zeros
+        return torch.zeros((3, max_out + 1), dtype=torch.int64, device=sel.device)
+    lib = _load()
+    out = torch.empty((3, max_out + 1), dtype=torch.int64, device=sel.device)
+    tiles = torch.empty(int(lib.syncmer_details_tiles(B * L)), dtype=torch.int64, device=sel.device)
+    with torch.cuda.device(sel.device):
+        rc = lib.syncmer_details_launch(
+            codes_padded.data_ptr(), sel.data_ptr(), out.data_ptr(), tiles.data_ptr(), B, L, w, s,
+            max_out, torch.cuda.current_stream().cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"syncmer details kernel launch failed: CUDA error {rc}")
+    selected_details.launches += DETAILS_LAUNCHES
+    return out
+
+
+selected_details.launches = 0
+
+
+def murmur64_rows(blocks: torch.Tensor, n_bytes: int) -> torch.Tensor:
+    """MurmurHash64A (seed 1234) over rows of little-endian 64-bit blocks
+    held as int64 bit patterns; int64 multiply wraps like uint64."""
+    m = _MURMUR_M
+    n_full = n_bytes >> 3
+    h0 = as_i64(int(MURMUR_SEED) ^ ((n_bytes * 0xC6A4A7935BD1E995) & ((1 << 64) - 1)))
+    h = torch.full((blocks.shape[0],), h0, dtype=torch.int64, device=blocks.device)
+    for i in range(n_full):
+        k = blocks[:, i] * m
+        k = k ^ srl(k, 47)
+        h = (h ^ (k * m)) * m
+    if n_bytes & 7:
+        h = (h ^ blocks[:, n_full]) * m
+    h = h ^ srl(h, 47)
+    h = h * m
+    return h ^ srl(h, 47)
+
+
+def pack_windows(win: torch.Tensor, w: int) -> torch.Tensor:
+    """[N, w] 2-bit codes (uint8) -> [N, nblk] int64 Murmur blocks: byte j
+    holds bases 4j..4j+3 with base 4j in bits 7-6, zero-padded past
+    ceil(w/4) bytes; block i is the little-endian read of bytes 8i..8i+7
+    (the reference's in-memory layout)."""
+    n = win.shape[0]
+    n_bytes = (w - 1) // 4 + 1
+    nblk = -(-n_bytes // 8)
+    padded = torch.zeros((n, nblk * 32), dtype=torch.uint8, device=win.device)
+    padded[:, :w] = win
+    quads = padded.view(n, nblk * 8, 4)
+    by = (quads[..., 0] << 6) | (quads[..., 1] << 4) | (quads[..., 2] << 2) | quads[..., 3]
+    return by.contiguous().view(torch.int64)
+
+
+def selected_details_plain(codes_padded: torch.Tensor, sel: torch.Tensor, w: int, s: int,
+                           max_out: int) -> torch.Tensor:
+    """Plain PyTorch version of the compaction and details: exact
+    ``torch.nonzero`` compaction (ascending flat order; on a CUDA tensor
+    it synchronises with the host), then per selected position its
+    window gathered from ``codes_padded`` (column 1 + p on, ``& 3``), the
+    boundary s-mer payload and strand, the 2-bit pack of the oriented
+    window and MurmurHash64A."""
+    B, L = _check_details(codes_padded, sel, w, s, max_out)
+    dev = sel.device
+    q = w - s + 1
+    mask = (1 << (2 * s)) - 1
+    flat_sel = sel.view(-1)
+    idx = torch.nonzero(flat_sel).squeeze(1)  # ascending flat order
+    n_sel = idx.shape[0]
+    idx = idx[:max_out]
+    n = idx.shape[0]
+    out = torch.zeros((3, max_out + 1), dtype=torch.int64, device=dev)
+    out[0, max_out] = n_sel
+    if n == 0:
+        return out
+    oc = flat_sel[idx]
+
+    # every selected window [p, p+w) lies inside its read (the selection
+    # kernel checked it N- and pad-free), so a strided view gathers it
+    b = idx // L
+    start = b * codes_padded.shape[1] + 1 + (idx - b * L)
+    win = codes_padded.view(-1).unfold(0, w, 1)[start] & 3  # [n, w] uint8
+    sm = torch.where((oc == 1).unsqueeze(1), win[:, :s], win[:, q - 1 : q - 1 + s]).long()
+    j = torch.arange(s, dtype=torch.int64, device=dev)
+    fwd = (sm << (2 * (s - 1 - j))).sum(1) & mask
+    rev = ((3 - sm) << (2 * j)).sum(1) & mask
+    z = fwd > rev
+    payload = (torch.minimum(fwd, rev) << 1) | z.long()
+    payload = torch.where(oc == 2, payload ^ 1, payload)
+
+    # Murmur identity over the oriented k-mer window: forward when z = 0,
+    # else its reverse complement
+    oriented = torch.where(z.unsqueeze(1), 3 - win.flip(1), win)
+    khash = murmur64_rows(pack_windows(oriented, w), (w - 1) // 4 + 1)
+
+    out[0, :n] = (idx << 1) | z.long()
+    out[1, :n] = payload
+    out[2, :n] = khash
+    return out

@@ -7,6 +7,7 @@ import pytest
 import torch
 
 from oatk_tpu.kernels.oracle import pack_hoco
+from oatk_tpu_torch.asm.reads import chunk_blob
 
 
 def _blob(rng, B, Lp, w, n_pos=(), n_cap=0, dense=False):
@@ -19,12 +20,11 @@ def _blob(rng, B, Lp, w, n_pos=(), n_cap=0, dense=False):
         codes[rng.random((B, Lp)) < 0.2] = rng.integers(0, 4)
     else:
         codes = rng.integers(0, 4, (B, Lp)).astype(np.uint8)
-    hl = rng.integers(w + 4, Lp + 1, B).astype(np.int32)
+    blob, packed, hl, _ = chunk_blob(B, Lp, sorted(n_pos), n_cap)
+    hl[:] = rng.integers(w + 4, Lp + 1, B)
     hl[0] = Lp
-    packed = np.stack([pack_hoco(codes[b]) for b in range(B)])
-    n_arr = np.full(n_cap, B * Lp, np.int32)
-    n_arr[: len(n_pos)] = sorted(n_pos)
-    return np.concatenate([packed.reshape(-1), hl.view(np.uint8), n_arr.view(np.uint8)])
+    packed[:] = np.stack([pack_hoco(codes[b]) for b in range(B)])
+    return blob
 
 
 def _jax_packed(blob, B, Lp, n_cap, w, s, max_out):
@@ -138,7 +138,7 @@ def test_murmur_rows_match_host_oracle():
     (kernels/hashes.py) for every tail length."""
     from oatk_tpu.kernels.hashes import murmur64_blocks_np
     from oatk_tpu_torch._u64 import to_numpy_u64
-    from oatk_tpu_torch.kernels.syncmer import murmur64_rows
+    from oatk_tpu_torch.kernels.syncmer_details import murmur64_rows
 
     rng = np.random.default_rng(11)
     for n_bytes in (1, 7, 8, 9, 63, 251):

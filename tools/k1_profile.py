@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
-"""Wall time, stage split and the selection kernel's (K1) device time of
-full ``syncasm`` runs of the PyTorch port at 110 Mbp on a CUDA card.
+"""Wall time, stage split and the extraction kernels' device time (the
+selection kernel K1, the blob decode K3d and the compaction and details
+K4) of full ``syncasm`` runs of the PyTorch port at 110 Mbp on a CUDA
+card.
 
 Run it from the root of the checkout whose ``oatk_tpu_torch`` it is to
 time (that directory comes first on ``sys.path``):
@@ -14,7 +16,9 @@ with the 110 Mbp recipe of the ``chip_smoke.py`` beside this file when it
 is absent.  ``syncasm`` runs at k=1001, s=31, c=30 (EC on, 3 unzip
 rounds) once to warm up, then N runs under ``torch.profiler`` (for each:
 wall, ``syncmer_select_kernel`` launches and their summed device time,
-all device events, the sha256 of ``.utg.final.gfa``), then W runs
+the same for each kernel of the decode and details (none in a checkout
+that predates them), the number of device events and their summed
+time, the sha256 of ``.utg.final.gfa``), then W runs
 without it, each with its wall time, stage split and the load stage's
 own split (``load.*``: file read, parse wait, extraction, assembly).
 """
@@ -78,11 +82,16 @@ def main() -> int:
         dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         k1 = [e.time_range.elapsed_us() for e in dev if "syncmer_select_kernel" in e.name]
         busy = sum(e.time_range.elapsed_us() for e in dev)
+        chain = []
+        for name in smoke.DEVICE_KERNELS[1:]:  # the decode and details kernels
+            us = [e.time_range.elapsed_us() for e in dev if name in e.name]
+            chain.append(f"{name} {len(us)} x {sum(us):.1f} us")
         with open(out + ".utg.final.gfa", "rb") as f:
             sha = hashlib.sha256(f.read()).hexdigest()
         print(f"[k1prof] {tag} profiled run {i}: wall {wall:.3f} s; syncmer_select_kernel "
               f"{len(k1)} launches, {sum(k1):.1f} us device (largest {max(k1, default=0):.1f} us); "
-              f"all device events {busy:.1f} us; .utg.final.gfa sha256 {sha[:16]}", flush=True)
+              f"{'; '.join(chain)}; all device events: {len(dev)}, {busy:.1f} us; "
+              f".utg.final.gfa sha256 {sha[:16]}", flush=True)
     for i in range(args.walls):
         wall, tm = run()
         stages = " ".join(f"{k}={v * 1000:.1f}ms" for k, v in tm.items())
