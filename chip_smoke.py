@@ -21,10 +21,14 @@ Phases (any failure makes the exit code non-zero):
 3b. the blob decode (K3d) and the compaction and details (K4) kernels
    against their plain versions on the card, exactly over the whole
    output: the same bench chunk as an upload blob (K1 between them), the
-   small cases, a forced overflow, and the rows and ASCII routes against
-   their CPU runs; median times by CUDA events beside each bound, the
-   plain versions' and ``torch.nonzero``'s on the same ``sel``, each
-   launch's device time, and the device events of one loader chunk;
+   small cases, a forced overflow, a dense chunk and rows of odd length,
+   K4 on its packed route and on its key route (all five key buffers
+   and n_sel), and the rows and ASCII routes against their CPU runs;
+   median times by CUDA events and device times beside each bound and
+   the previous design's device times, the plain versions' and
+   ``torch.nonzero``'s on the same ``sel``, each launch's device time,
+   and the device events and K4 launches of one loader chunk on either
+   route;
 4. the wavefront kernel against its plain version on the card, exactly
    over the whole output state: 2,000 single states shaped like error
    correction's calls at k=1001 (tl up to 5,700, ql up to 6,600, EC's
@@ -41,10 +45,11 @@ Phases (any failure makes the exit code non-zero):
    set (k=1001, s=31, c=30, EC on, 3 unzip rounds): wall time, stage
    split and the load stage's own split (``load.extract``: the loader's
    main-thread extraction), the launch counts of K1, K3d and K4 (each
-   must be above 0), ``torch.nonzero`` calls inside the loader (must be
-   0), peak device memory, S/L line counts and the sha256 of
+   must be above 0, every K4 launch on the key route), ``torch.nonzero``
+   calls inside the loader and ``chunk_keys`` calls (both must be 0),
+   peak device memory, S/L line counts and the sha256 of
    ``.utg.final.gfa``; then one run under torch.profiler: each kernel's
-   summed device time and all device events;
+   summed device time, all device events and their number per chunk;
 7. ``oatk`` (syncasm -> annotation -> pathfinder) through its CLI at its
    defaults on the same 110 Mbp set, with a stub nhmmscan written into
    the work directory: on the card with OATK_TPU_WF_BACKEND=device (EC's
@@ -376,15 +381,19 @@ def kernel_loop() -> int:
     return 0 if r["ok"] else 1
 
 
-def make_blob(rng, B: int, Lp: int, w: int, n_rate: float):
+def make_blob(rng, B: int, Lp: int, w: int, n_rate: float, dense: bool = False):
     """An upload blob as the loader packs it (``asm/reads.py:chunk_blob``):
-    random bases, Ns at n_rate, ragged read ends (row 1 shorter than
+    random bases (near-periodic ones when ``dense``, so that most
+    positions select), Ns at n_rate, ragged read ends (row 1 shorter than
     w+4).  Returns (blob uint8 numpy, n_cap)."""
     import numpy as np
 
     from oatk_tpu_torch.asm.reads import chunk_blob
 
     codes = rng.integers(0, 4, (B, Lp)).astype(np.uint8)
+    if dense:
+        period = np.tile(rng.integers(0, 4, 7).astype(np.uint8), Lp // 7 + 1)[:Lp]
+        codes = np.where(rng.random((B, Lp)) < 0.2, codes, np.stack([np.roll(period, 3 * b) for b in range(B)]))
     q = codes.reshape(B, Lp // 4, 4)
     hl = rng.integers(max(1, Lp // 2), Lp + 1, B)
     hl[0] = Lp
@@ -423,8 +432,9 @@ def ascii_rows(rng, B: int, L: int):
 
 
 def kernel_name(name: str) -> str:
-    """A device event's name without its namespace and arguments."""
-    return name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0]
+    """A device event's name without its return type, namespace,
+    template arguments and arguments."""
+    return name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].removeprefix("void ")
 
 
 def profile_device(fn) -> list:
@@ -441,15 +451,40 @@ def profile_device(fn) -> list:
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def keys_case(cp, sel, w: int, s: int, max_out: int) -> tuple[bool, int, int]:
+    """K4's key route (``selected_keys``) against its plain version on the
+    same card tensors: every lane of the five buffers (the lanes around
+    the chunk's too) and n_sel, exactly.  Returns (equal, max_abs_err,
+    n_sel)."""
+    import torch
+
+    from oatk_tpu_torch.kernels import syncmer_details as SD
+
+    B = sel.shape[0]
+    off, n = 17, max_out + 40
+    sids = torch.arange(B, dtype=torch.int64, device=sel.device) * 3 + 5
+    bufs = [[torch.full((n,), 99, dtype=dt, device=sel.device)
+             for dt in (torch.int64,) * 4 + (torch.int32,)] for _ in range(2)]
+    got = SD.selected_keys(cp, sel, w, s, max_out, sids, bufs[0], off)
+    torch.cuda.synchronize()
+    want = SD.selected_keys_plain(cp, sel, w, s, max_out, sids, bufs[1], off)
+    same = int(got[0]) == int(want[0]) and all(torch.equal(a, b) for a, b in zip(*bufs))
+    err = max(max_abs_err(a.long(), b.long()) for a, b in zip(*bufs))
+    return same, err, int(got[0])
+
+
 def phase_details(device, main_shape=(2048, 16384), small=SMALL_CASES, reps=10) -> dict:
     """The decode (K3d) and details (K4) kernels against their plain
     versions on the same card tensors, exactly over the whole output:
     the bench chunk (K1 between them on the kernel's output), the small
-    cases, a forced overflow, the rows route (``extract_hoco_rows``) and
-    the ASCII route (``extract_syncmers_ascii``) against their CPU runs;
-    median times by CUDA events beside each bound, the plain versions'
-    times and ``torch.nonzero`` on the same ``sel``; the device events of
-    one loader chunk (upload, chain, n_sel read)."""
+    cases, a forced overflow, a dense chunk (most positions select) and
+    rows of odd length (not a multiple of 4 or of K4's tile), on K4's
+    packed route and its key route (``keys_case``), then the rows route
+    (``extract_hoco_rows``) and the ASCII route
+    (``extract_syncmers_ascii``) against their CPU runs; median times by
+    CUDA events beside each bound, the plain versions' times and
+    ``torch.nonzero`` on the same ``sel``; the device events and K4
+    launches of one loader chunk on either route."""
     import numpy as np
     import torch
 
@@ -459,11 +494,12 @@ def phase_details(device, main_shape=(2048, 16384), small=SMALL_CASES, reps=10) 
     from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
     ok, dec_err, det_err, res = True, 0, 0, {}
-    cases = [(K_MAIN, S_MAIN, *main_shape, 1e-3)] + [(w, s, B, L, min(1e-3, 0.3 / w))
-                                                      for w, s, B, L in small]
-    for i, (w, s, B, L, nr) in enumerate(cases):
+    cases = ([(K_MAIN, S_MAIN, *main_shape, 1e-3, False)]
+             + [(w, s, B, L, min(1e-3, 0.3 / w), False) for w, s, B, L in small]
+             + [(15, 5, 8, 12288, 1e-3, True)])  # dense: most positions select
+    for i, (w, s, B, L, nr, dense) in enumerate(cases):
         Lp = -(-L // 16) * 16
-        blob, n_cap = make_blob(np.random.default_rng((20261018, i)), B, Lp, w, nr)
+        blob, n_cap = make_blob(np.random.default_rng((20261018, i)), B, Lp, w, nr, dense)
         bt = torch.from_numpy(blob).to(device)
         cp = SD.decode_blob(bt, B, Lp, n_cap, w)
         torch.cuda.synchronize()
@@ -473,17 +509,20 @@ def phase_details(device, main_shape=(2048, 16384), small=SMALL_CASES, reps=10) 
         n_sel = int((sel != 0).sum())
         max_out = _capacity(B, Lp, w, s)
         # the loader's capacity, and one that overflows
-        outs = [(max_out, "")] + ([(n_sel // 2, " overflow")] if i in (0, 1) and n_sel > 1 else [])
+        outs = [(max_out, "")] + ([(n_sel // 2, " overflow")] if (i in (0, 1) or dense) and n_sel > 1 else [])
         for mo, tag in outs:
             got = SD.selected_details(cp, sel, w, s, mo)
             torch.cuda.synchronize()
             ref = SD.selected_details_plain(cp, sel, w, s, mo)
             err = max_abs_err(got, ref)
             same = torch.equal(got, ref) and int(got[0, mo]) == n_sel
-            ok &= same
-            det_err = max(det_err, err)
-            log(f"[details] w={w} s={s} B={B} Lp={Lp}{tag}: n_sel={n_sel} max_out={mo} "
-                f"equal={same} max_abs_err={err}")
+            same_k, err_k, n_k = keys_case(cp, sel, w, s, mo)
+            same_k &= n_k == n_sel
+            ok &= same and same_k
+            det_err = max(det_err, err, err_k)
+            log(f"[details] w={w} s={s} B={B} Lp={Lp}{tag}{' dense' if dense else ''}: n_sel={n_sel} "
+                f"max_out={mo} packed equal={same} max_abs_err={err}; keys equal={same_k} "
+                f"max_abs_err={err_k}")
         ok &= same_dec and (n_sel >= MIN_SELECTED or Lp < 2 * w)
         dec_err = max(dec_err, int((cp.int() - cp_ref.int()).abs().max()))
         log(f"[details] w={w} s={s} B={B} Lp={Lp}: decode equal={same_dec} n_cap={n_cap}")
@@ -493,6 +532,20 @@ def phase_details(device, main_shape=(2048, 16384), small=SMALL_CASES, reps=10) 
         del bt, cp, cp_ref, sel
 
     rng = np.random.default_rng(20261019)
+    for w, s, B, L in ((51, 11, 6, 21501), (K_MAIN, S_MAIN, 8, 12347)):  # rows of odd length
+        cp = make_select_input(rng, B, L, w, 1e-3, device)
+        sel = syncmer_select(cp, w, s)
+        n_sel = int((sel != 0).sum())
+        for mo in (n_sel + 100, max(1, n_sel // 3)):
+            got = SD.selected_details(cp, sel, w, s, mo)
+            torch.cuda.synchronize()
+            same = torch.equal(got, SD.selected_details_plain(cp, sel, w, s, mo))
+            same_k, err_k, n_k = keys_case(cp, sel, w, s, mo)
+            ok &= same and same_k and n_k == n_sel > 0
+            det_err = max(det_err, err_k)
+            log(f"[details] odd rows w={w} s={s} B={B} L={L}: n_sel={n_sel} max_out={mo} "
+                f"packed equal={same}; keys equal={same_k}")
+
     x = make_select_input(rng, 64, 16384, K_MAIN, 1e-3, "cpu")
     rows = x[:, 1:1 + 16384].contiguous()
     mo = _capacity(64, 16384, K_MAIN, S_MAIN)
@@ -542,66 +595,109 @@ def window_bytes(sel, Wd: int, w: int, max_out: int) -> int:
     return w + int(torch.diff(start).clamp(max=w).sum())
 
 
+# The previous design's device times at the bench chunk (2048 x 16384,
+# k=1001/s=31), measured by this script on an H100 80GB HBM3 at 700 W: the
+# decode one byte load per output byte, the compaction and details four
+# launches (tile counts, a one-block scan, the compaction, the details)
+PREVIOUS_US = {"decode": 53.4, "details": 146.4}
+
+
 def details_timing(bt, cp, sel, B, Lp, n_cap, w, s, max_out, reps) -> dict:
     """Median times (CUDA events) of the decode and details kernels at
-    one chunk, of their plain versions and of ``torch.nonzero`` on the
-    same ``sel``; each kernel's device time by launch (torch.profiler);
-    bounds: the bytes each must move (each input once, each output once;
-    for the details all of ``sel`` and only the selected windows of
-    ``codes_padded``, ``window_bytes``) over HBM_BPS, and the details'
+    one chunk, K4 on both routes, of their plain versions and of
+    ``torch.nonzero`` on the same ``sel``; each kernel's device time by
+    launch (torch.profiler); bounds: the bytes each must move (each input
+    once, each output once; for the details all of ``sel``, only the
+    selected windows of ``codes_padded`` (``window_bytes``) and 24 B per
+    packed lane or 36 B per key lane) over HBM_BPS, and the details'
     operations (``K4_OPS``) over ALU_OPS."""
     import torch
 
     from oatk_tpu_torch.kernels import syncmer_details as SD
 
     n_win = min(int((sel != 0).sum()), max_out)
+    sids = torch.arange(B, dtype=torch.int64, device=sel.device)
+    bufs = [torch.zeros(max_out, dtype=dt, device=sel.device) for dt in (torch.int64,) * 4 + (torch.int32,)]
     dec_ms = median_ms(lambda: SD.decode_blob(bt, B, Lp, n_cap, w), reps)
     dec_plain = median_ms(lambda: SD.decode_blob_plain(bt, B, Lp, n_cap, w), max(3, reps // 3))
     det_ms = median_ms(lambda: SD.selected_details(cp, sel, w, s, max_out), reps)
     det_plain = median_ms(lambda: SD.selected_details_plain(cp, sel, w, s, max_out), max(3, reps // 3))
+    keys_ms = median_ms(lambda: SD.selected_keys(cp, sel, w, s, max_out, sids, bufs, 0), reps)
+    keys_plain = median_ms(lambda: SD.selected_keys_plain(cp, sel, w, s, max_out, sids, bufs, 0),
+                           max(3, reps // 3))
     nz_ms = median_ms(lambda: torch.nonzero(sel), reps)
-    by = {}
-    for name, us in profile_device(lambda: [SD.selected_details(cp, sel, w, s, max_out) for _ in range(5)]
-                                   + [SD.decode_blob(bt, B, Lp, n_cap, w) for _ in range(5)]):
-        key = kernel_name(name)
-        by[key] = by.get(key, 0.0) + us / 5
+    by, by_keys = {}, {}
+    for into, fn in ((by, lambda: [SD.selected_details(cp, sel, w, s, max_out) for _ in range(5)]
+                      + [SD.decode_blob(bt, B, Lp, n_cap, w) for _ in range(5)]),
+                     (by_keys, lambda: [SD.selected_keys(cp, sel, w, s, max_out, sids, bufs, 0)
+                                        for _ in range(5)])):
+        for name, us in profile_device(fn):
+            key = kernel_name(name)
+            into[key] = into.get(key, 0.0) + us / 5
     dec_bytes = B * Lp // 4 + 4 * B + 4 * n_cap + cp.numel()
     win_bytes = window_bytes(sel, cp.shape[1], w, max_out)
     det_bytes = 4 * sel.numel() + win_bytes + 24 * (max_out + 1)
+    keys_bytes = 4 * sel.numel() + win_bytes + 36 * max_out + 8 * B + 8
     det_ops = details_ops(sel.numel(), n_win, w, s)
     dec_bound = 1000 * dec_bytes / HBM_BPS
     det_bound = 1000 * max(det_bytes / HBM_BPS, det_ops / ALU_OPS)
+    keys_bound = 1000 * max(keys_bytes / HBM_BPS, det_ops / ALU_OPS)
     det_by = "bytes" if det_bytes / HBM_BPS >= det_ops / ALU_OPS else "operations"
-    scan_us = sum(v for k, v in by.items() if k in ("sel_count_kernel", "sel_scan_kernel",
-                                                     "sel_compact_kernel"))
+    k4 = ("sel_tiles_kernel", "sel_details_kernel")
+    dec_us = sum(v for k, v in by.items() if "blob_" in k)
+    det_us = sum(v for k, v in by.items() if any(n in k for n in k4))
+    keys_us = sum(v for k, v in by_keys.items() if any(n in k for n in k4))
     log(f"[details] decode at {B} x {Lp} (w={w}, n_cap={n_cap}): kernel {dec_ms:.4f} ms plain "
-        f"{dec_plain:.4f} ms (median, CUDA events); bound {dec_bound:.4f} ms by bytes ({dec_bytes} B), "
-        f"{100 * dec_bound / dec_ms:.1f}% of it")
+        f"{dec_plain:.4f} ms (median, CUDA events), {dec_us:.1f} us device (previous design "
+        f"{PREVIOUS_US['decode']} us); bound {dec_bound:.4f} ms by bytes ({dec_bytes} B), "
+        f"{100 * dec_bound / dec_ms:.1f}% of it by events, {100000 * dec_bound / dec_us:.1f}% by "
+        f"device time")
     log(f"[details] details at {B} x {Lp} (w={w} s={s}, {n_win} windows, max_out {max_out}): kernel "
-        f"{det_ms:.4f} ms plain {det_plain:.4f} ms (median, CUDA events); bound {det_bound:.4f} ms "
+        f"{det_ms:.4f} ms plain {det_plain:.4f} ms (median, CUDA events), {det_us:.1f} us device "
+        f"(previous design {PREVIOUS_US['details']} us); bound {det_bound:.4f} ms "
         f"by {det_by} ({det_bytes} B, of them {win_bytes} B of selected windows, = "
         f"{1000 * det_bytes / HBM_BPS:.4f} ms; {det_ops} operations = "
-        f"{1000 * det_ops / ALU_OPS:.4f} ms), {100 * det_bound / det_ms:.1f}% of it")
+        f"{1000 * det_ops / ALU_OPS:.4f} ms), {100 * det_bound / det_ms:.1f}% of it by events, "
+        f"{100000 * det_bound / det_us:.1f}% by device time")
+    log(f"[details] key route at the same chunk: kernel {keys_ms:.4f} ms plain {keys_plain:.4f} ms "
+        f"(median, CUDA events), {keys_us:.1f} us device; bound {keys_bound:.4f} ms ({keys_bytes} B), "
+        f"{100000 * keys_bound / keys_us:.1f}% of it by device time")
     log("[details] device us per call by launch (torch.profiler, mean of 5): " + "; ".join(
-        f"{k} {v:.1f}" for k, v in sorted(by.items())))
-    log(f"[details] the scan passes (count, scan, compaction) {scan_us:.1f} us device beside "
-        f"torch.nonzero on the same sel {nz_ms * 1000:.1f} us (median, CUDA events; a yardstick "
-        f"for that part alone: nonzero also synchronises with the host)")
-    return dict(dec_ms=dec_ms, dec_plain_ms=dec_plain, dec_bound_ms=dec_bound,
-                ms=det_ms, plain_ms=det_plain, bound_ms=det_bound, bound_by=det_by,
-                nonzero_ms=nz_ms, device_us=by)
+        f"{k} {v:.1f}" for k, v in sorted(by.items())) + "; key route: " + "; ".join(
+        f"{k} {v:.1f}" for k, v in sorted(by_keys.items())))
+    log(f"[details] K4 launches per call {SD.DETAILS_LAUNCHES}; torch.nonzero on the same sel "
+        f"{nz_ms * 1000:.1f} us (median, CUDA events; a yardstick for the compaction alone: it "
+        f"also synchronises with the host)")
+    return dict(dec_ms=dec_ms, dec_plain_ms=dec_plain, dec_bound_ms=dec_bound, dec_us=dec_us,
+                ms=det_ms, plain_ms=det_plain, bound_ms=det_bound, bound_by=det_by, device_us=det_us,
+                keys_ms=keys_ms, keys_plain_ms=keys_plain, keys_bound_ms=keys_bound, keys_us=keys_us,
+                nonzero_ms=nz_ms, by_launch=by, by_launch_keys=by_keys)
 
 
-def chunk_events(blob, B, Lp, n_cap, w, s, max_out, device) -> list:
-    """The device events of one loader chunk on the card (upload, the
-    extraction chain, the n_sel read), by torch.profiler."""
+def chunk_events(blob, B, Lp, n_cap, w, s, max_out, device) -> dict:
+    """The device events and K4 launches of one loader chunk on the card
+    (upload, the extraction chain, the n_sel read), by torch.profiler: on
+    the packed route (host counting) and on the key route (device
+    counting: the sids upload too)."""
+    import numpy as np
+
     from oatk_tpu_torch.asm.reads import extract_chunk
+    from oatk_tpu_torch.index.devcount import DevCountState
+    from oatk_tpu_torch.kernels import syncmer_details as SD
 
-    extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device)  # warm
-    ev = profile_device(lambda: extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device))
-    log(f"[details] one loader chunk ({B} x {Lp}, w={w}): {len(ev)} device events: " + "; ".join(
-        f"{kernel_name(n)[:48]} {us:.1f} us" for n, us in ev))
-    return ev
+    st = DevCountState(device, cap_hint=8 * max_out)
+    sids = np.arange(B, dtype=np.int64)
+    out = {}
+    for route, fn in (("packed", lambda: extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device)),
+                      ("keys", lambda: extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device, st, sids))):
+        fn()  # warm
+        k4 = SD.selected_details.launches + SD.selected_keys.launches
+        ev = profile_device(fn)
+        k4 = SD.selected_details.launches + SD.selected_keys.launches - k4
+        log(f"[details] one loader chunk, {route} route ({B} x {Lp}, w={w}): {len(ev)} device events, "
+            f"{k4} K4 launches: " + "; ".join(f"{kernel_name(n)[:48]} {us:.1f} us" for n, us in ev))
+        out[route] = dict(events=len(ev), k4_launches=k4)
+    return out
 
 
 def details_loop() -> int:
@@ -613,7 +709,7 @@ def details_loop() -> int:
 
     build_kernels({"syncmer_select.cu": SS, "syncmer_details.cu": SD})
     r = phase_details("cuda")
-    log(f"[details] ok={r['ok']} {json.dumps({k: v for k, v in r.items() if k not in ('ok', 'chunk_events')})}")
+    log(f"[details] ok={r['ok']} {json.dumps({k: v for k, v in r.items() if k != 'ok'})}")
     return 0 if r["ok"] else 1
 
 
@@ -1061,16 +1157,19 @@ def reset_counts() -> None:
     from oatk_tpu_torch.kernels import syncmer_details as SD
     from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
-    syncmer_select.launches = SD.decode_blob.launches = SD.selected_details.launches = 0
+    syncmer_select.launches = SD.decode_blob.launches = 0
+    SD.selected_details.launches = SD.selected_keys.launches = 0
 
 
 def read_counts() -> dict:
-    """The launch counts of the selection, decode and details kernels."""
+    """The launch counts of the selection, decode and details kernels
+    (``details``: K4 on either route; ``keys``: on the key route)."""
     from oatk_tpu_torch.kernels import syncmer_details as SD
     from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
     return dict(launches=syncmer_select.launches, decode=SD.decode_blob.launches,
-                details=SD.selected_details.launches)
+                details=SD.selected_details.launches + SD.selected_keys.launches,
+                keys=SD.selected_keys.launches)
 
 
 @contextlib.contextmanager
@@ -1107,17 +1206,38 @@ def nonzero_counter():
         torch.nonzero, torch.Tensor.nonzero, P.load_and_extract = real_fn, real_m, real_load
 
 
+@contextlib.contextmanager
+def chunk_keys_counter():
+    """Count calls of the device count's plain key decode
+    (``index/devcount.py:chunk_keys``) for the block: ``box["n"]``."""
+    from oatk_tpu_torch.index import devcount as DC
+
+    box, real = {"n": 0}, DC.chunk_keys
+
+    def counted(*a, **kw):
+        box["n"] += 1
+        return real(*a, **kw)
+
+    DC.chunk_keys = counted
+    try:
+        yield box
+    finally:
+        DC.chunk_keys = real
+
+
 # the extraction chain's kernels by their device names: K1, then the
 # decode and details of csrc/syncmer_details.cu
 DEVICE_KERNELS = ("syncmer_select_kernel", "blob_decode_kernel", "blob_n_scatter_kernel",
-                  "sel_count_kernel", "sel_scan_kernel", "sel_compact_kernel", "sel_details_kernel")
+                  "sel_tiles_kernel", "sel_details_kernel")
 
 
 def phase_full(work: str) -> dict:
     """The main path on the card at 110 Mbp, with the launch counts, the
-    ``torch.nonzero`` calls inside the loader (must be 0), the loader's
-    main-thread extraction time, and one profiled run: each kernel's
-    summed device time and all device events."""
+    ``torch.nonzero`` calls inside the loader and the ``chunk_keys`` calls
+    of the run (both must be 0: K4 writes the device count's keys), the
+    loader's main-thread extraction time, and one profiled run: each
+    kernel's summed device time, all device events and their number per
+    chunk."""
     import torch
 
     from oatk_tpu_torch.asm.pipeline import resolve_device
@@ -1129,11 +1249,17 @@ def phase_full(work: str) -> dict:
     with nonzero_counter() as probe:  # the counter sees the plain version's call
         x = torch.zeros((1, 64), dtype=torch.uint8, device=dev)
         SD.selected_details_plain(x, torch.ones((1, 64 - 18), dtype=torch.int32, device=dev), 15, 5, 8)
+    with chunk_keys_counter() as kprobe:  # and the key route's plain version calls chunk_keys
+        x = torch.zeros((1, 64), dtype=torch.uint8)
+        bufs = [torch.zeros(8, dtype=dt) for dt in (torch.int64,) * 4 + (torch.int32,)]
+        SD.selected_keys(x, torch.ones((1, 64 - 18), dtype=torch.int32), 15, 5, 8,
+                         torch.zeros(1, dtype=torch.int64), bufs, 0)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    with nonzero_counter() as nz:
+    with nonzero_counter() as nz, chunk_keys_counter() as ck:
         res, wall = run_syncasm(fa, K_MAIN, S_MAIN, 30, out, "cuda", ec=True, unzip=3)
     cnt = read_counts()
+    n_chunks = getattr(getattr(res.read_db, "_devcount_stats", None), "n_append", 0)
     peak = torch.cuda.max_memory_allocated()
     summ = gfa_summary(out + ".utg.final.gfa")
     stages = " ".join(f"{k}={v * 1000:.1f}ms" for k, v in (res.timings or {}).items())
@@ -1143,9 +1269,11 @@ def phase_full(work: str) -> dict:
     log(f"[full] [T::syncasm] {stages}")
     log("[full] load stage split: " + " ".join(f"load.{k}={v * 1000:.1f}ms" for k, v in lt.items()))
     log(f"[full] syncmer_select launches={cnt['launches']} decode launches={cnt['decode']} "
-        f"details launches={cnt['details']} max_memory_allocated={peak} B")
+        f"details launches={cnt['details']} (key route {cnt['keys']}) over {n_chunks} chunks "
+        f"max_memory_allocated={peak} B")
     log(f"[full] torch.nonzero calls: {nz['load']} in the loader, {nz['n']} in the whole run "
-        f"(the counter's self-check on the plain version: {probe['n']})")
+        f"(the counter's self-check on the plain version: {probe['n']}); chunk_keys calls: "
+        f"{ck['n']} (self-check on the key route's plain version: {kprobe['n']})")
     log(f"[full] .utg.final.gfa: S={summ['S']} L={summ['L']} seg_bp={summ['seg_bp']} "
         f"sha256={summ['sha256']}")
     prof_out = os.path.join(work, "full_110mbp_prof")
@@ -1159,11 +1287,15 @@ def phase_full(work: str) -> dict:
     log(f"[full] profiled run: {len(ev)} device events, {sum(us for _, us in ev):.1f} us in all; "
         + "; ".join(f"{k} {n} x {t:.1f} us" for k, (n, t) in by.items())
         + f"; the chain without K1 {sum(by.get(k, (0, 0))[1] for k in DEVICE_KERNELS[1:]):.1f} us; "
+        f"{len(ev) / max(1, n_chunks):.1f} device events per chunk; "
         f"GFA equal to the run above: {same_prof}")
-    ok = (cnt["launches"] > 0 and cnt["decode"] > 0 and cnt["details"] > 0 and nz["load"] == 0
-          and probe["n"] > 0 and summ["S"] > 0 and res.scg is not None and same_prof)
+    ok = (cnt["launches"] > 0 and cnt["decode"] > 0 and cnt["details"] > 0
+          and cnt["keys"] == cnt["details"] and nz["load"] == 0 and probe["n"] > 0
+          and ck["n"] == 0 and kprobe["n"] > 0 and summ["S"] > 0 and res.scg is not None
+          and same_prof)
     return dict(ok=ok, fa=fa, n_bp=n_bp, sha256=summ["sha256"], read_db=res.read_db,
-                timings=res.timings or {}, out=out, wall=wall, extract_s=lt.get("extract"), **cnt)
+                timings=res.timings or {}, out=out, wall=wall, extract_s=lt.get("extract"),
+                events=len(ev), chunks=n_chunks, chunk_keys_calls=ck["n"], **cnt)
 
 
 FAKE_NHMMSCAN = """#!/bin/bash
@@ -1973,7 +2105,7 @@ def main() -> int:
 
     # no single PyTorch call computes any of these functions: library_ms
     # is null (torch.nonzero's time on the same sel, a yardstick for the
-    # details' scan passes alone, is nonzero_ms)
+    # details' compaction alone, is nonzero_ms)
     kernels = {"kernels": [{
         "name": "syncmer_select",
         "route": "cuda",
@@ -2014,12 +2146,15 @@ def main() -> int:
         "bound_ms": det["dec_bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
+        "device_us": det["dec_us"],
     }, {
         "name": "syncmer_details",
         "route": "cuda",
         "source": "oatk_tpu_torch/csrc/syncmer_details.cu",
         "replaces": "oatk_tpu/kernels/syncmer.py:419",
         "launches": full["details"],
+        "launches_key_route": full["keys"],
+        "launches_per_chunk": det["chunk_events"]["keys"]["k4_launches"],
         "launches_by_route": routes["details"],
         "max_abs_err": det["max_abs_err"],
         "ms": det["ms"],
@@ -2027,6 +2162,10 @@ def main() -> int:
         "bound_ms": det["bound_ms"],
         "bound_by": det["bound_by"],
         "library_ms": None,
+        "device_us": det["device_us"],
+        "keys_ms": det["keys_ms"],
+        "keys_plain_ms": det["keys_plain_ms"],
+        "keys_bound_ms": det["keys_bound_ms"],
         "nonzero_ms": det["nonzero_ms"],
     }]}
     if not ok:

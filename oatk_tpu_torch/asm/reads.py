@@ -8,9 +8,11 @@ selects through the closed-syncmer kernel (:mod:`..kernels.syncmer_select`):
 - :func:`load_and_extract`, the fused native-parse loader.  Uncapped,
   worker threads parse+pack segment i+1 while the main thread uploads
   segment i's blobs and extracts them
-  (:func:`oatk_tpu_torch.kernels.syncmer.extract_hoco_fused`); the keys
-  go to the device count buffers, or, with ``device_count=False``, each
-  chunk's selected rows come back to the host for the host sort.  Under
+  (:func:`oatk_tpu_torch.kernels.syncmer.extract_hoco_fused_keys`,
+  whose last kernel writes the keys into the device count buffers), or,
+  with ``device_count=False``, each chunk's selected rows come back to
+  the host for the host sort
+  (:func:`oatk_tpu_torch.kernels.syncmer.extract_hoco_fused`).  Under
   ``-D`` (``max_data``) one sequential flow parses each whole file, caps
   it and counts on the host.
 - :func:`extract_all_syncmers`, the Python reader's route (host hoco +
@@ -273,19 +275,36 @@ def _chunk_n_positions(isn_idx, st, en, Lp):
     return np.concatenate(parts)
 
 
-def extract_chunk(blob: np.ndarray, B, Lp, n_cap, w, s, max_out, device):
+def extract_chunk(blob: np.ndarray, B, Lp, n_cap, w, s, max_out, device, devcount=None,
+                  sids=None):
     """Upload one chunk's blob and extract its syncmers, regrowing the
     capacity in a loop until it holds every selected position.  Returns
-    (packed [3, max_out+1] on ``device``, n_sel, max_out)."""
+    (packed [3, max_out+1] on ``device``, n_sel, max_out).
+
+    With ``devcount`` (a :class:`~oatk_tpu_torch.index.devcount.DevCountState`)
+    the key route runs instead: the chunk's key lanes go straight into
+    the count buffers at a reserved offset, row b's read id being
+    ``sids[b]`` (uploaded once), an overflow reserves again and rewrites
+    the same lanes, and the lanes are committed once n_sel <= max_out;
+    packed is then None."""
     import torch
 
-    from ..kernels.syncmer import extract_hoco_fused
+    from ..kernels.syncmer import extract_hoco_fused, extract_hoco_fused_keys
 
     blob_d = torch.from_numpy(blob).to(device)
+    sids_d = None if devcount is None else torch.from_numpy(np.asarray(sids, np.int64)).to(device)
     while True:
-        packed = extract_hoco_fused(blob_d, B, Lp, n_cap, w, s, max_out)
-        n_sel = int(packed[0, max_out])
+        if devcount is None:
+            packed = extract_hoco_fused(blob_d, B, Lp, n_cap, w, s, max_out)
+            n_sel = int(packed[0, max_out])
+        else:
+            packed = None
+            off = devcount.reserve(max_out)
+            n_sel = int(extract_hoco_fused_keys(blob_d, B, Lp, n_cap, w, s, max_out, sids_d,
+                                                 devcount.bufs, off)[0])
         if n_sel <= max_out:
+            if devcount is not None:
+                devcount.commit(max_out)
             return packed, n_sel, max_out
         max_out = _round_up(n_sel + 1024, 1024)
 
@@ -453,13 +472,13 @@ def load_and_extract(
         nonlocal up
         rows, n_occ = [], 0
         for chunk, B, Lp, max_out, n_cap, blob in chunks:
-            packed, n_sel, max_out = extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device)
+            sids = None if devcount is None else np.asarray(chunk, np.int64) + csid0
+            packed, n_sel, max_out = extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device,
+                                                   devcount, sids)
             up += blob.nbytes
             n_occ += n_sel
             if devcount is None:
                 rows.append((chunk, _host_rows(packed, n_sel, B, Lp)))
-            else:
-                devcount.append(packed, np.asarray(chunk, np.int64) + csid0, Lp, max_out)
         return rows, n_occ
 
     def assemble(res, sid_base, codes, rl, keep, rows):

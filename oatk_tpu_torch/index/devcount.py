@@ -39,7 +39,9 @@ from .._u64 import from_numpy_u64, srl, to_numpy_u64, ukey
 def chunk_keys(packed: torch.Tensor, sids: torch.Tensor, Lp: int):
     """Decode one chunk's packed ``[3, max_out+1]`` result into max_out
     key lanes: (hash, low = sid<<32|idx<<1|z, smer, m32 = pos<<1|z,
-    invalid)."""
+    invalid).  The plain version of the key route
+    (``kernels/syncmer_details.py:selected_keys``), whose kernel writes
+    the same lanes itself; the card's loader does not call it."""
     dev = packed.device
     max_out = packed.shape[1] - 1
     B = sids.shape[0]
@@ -193,20 +195,24 @@ class DevCountState:
         self._final = None
         self._host = None
 
-    def append(self, packed: torch.Tensor, sids: np.ndarray, Lp: int, max_out: int):
-        """Append one chunk's keys; returns the chunk's offset in the
-        buffers."""
+    @property
+    def bufs(self):
+        """The carry buffers (hash, low, smer, m32, invalid)."""
+        return self._bufs
+
+    def reserve(self, max_out: int) -> int:
+        """Room for one chunk's max_out key lanes at the append offset,
+        which is returned; the lanes count once :meth:`commit` is called
+        (a chunk that overflowed reserves again with its larger max_out
+        and rewrites the same lanes)."""
         self._drop_final()
         self._ensure(max_out)
-        off = self.n_fill
-        keys = chunk_keys(
-            packed, torch.as_tensor(np.asarray(sids, np.int64), device=self.device), Lp
-        )
-        for buf, k in zip(self._bufs, keys):
-            buf[off : off + max_out] = k
-        self.n_fill = off + max_out
+        return self.n_fill
+
+    def commit(self, max_out: int):
+        """Take the reserved chunk's max_out lanes into the count."""
+        self.n_fill += max_out
         self.n_append += 1
-        return off
 
     def invalidate(self, off: int, n: int):
         """Mark previously appended lanes invalid (a discarded parse

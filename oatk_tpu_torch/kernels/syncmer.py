@@ -8,7 +8,9 @@ closed-syncmer selection (:mod:`.syncmer_select`, K1), then the ordered
 compaction and per selected position the boundary s-mer payload and
 strand, the 2-bit window pack, the reverse complement and MurmurHash64A
 (:func:`.syncmer_details.selected_details`, K4).  On a card a chunk is
-seven launches at most and no host read; the caller reads n_sel once.
+four launches at most (K3d one or two, K1, K4) and no host read; the
+caller reads n_sel once.  :func:`extract_hoco_fused_keys` runs the same
+chain but has K4 write the device count's key lanes itself.
 :func:`extract_hoco_rows` (``--shards``) starts from host-compressed
 code rows and :func:`extract_syncmers_ascii` (``OATK_TPU_DEVICE_HOCO``,
 K11) from raw ASCII rows: :func:`hoco_phase` compresses homopolymers on
@@ -19,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from .oracle import SEQ_NT4
-from .syncmer_details import decode_blob, selected_details
+from .syncmer_details import decode_blob, selected_details, selected_keys
 from .syncmer_select import syncmer_select
 
 
@@ -39,6 +41,29 @@ def extract_hoco_fused(
     regrows max_out and calls again."""
     codes_padded = decode_blob(blob, B, Lp, n_cap, w)
     return selected_details(codes_padded, syncmer_select(codes_padded, w, s), w, s, max_out)
+
+
+def extract_hoco_fused_keys(
+    blob: torch.Tensor,
+    B: int,
+    Lp: int,
+    n_cap: int,
+    w: int,
+    s: int,
+    max_out: int,
+    sids: torch.Tensor,  # [>= rows with reads] int64 read id of each row
+    bufs,  # the device count's (hash, low, smer, m32, invalid) buffers
+    off: int,
+) -> torch.Tensor:
+    """The chain of :func:`extract_hoco_fused` with the keys written
+    straight into lanes ``[off, off+max_out)`` of the device count's
+    buffers (:func:`.syncmer_details.selected_keys`): no packed result is
+    made.  Returns the EXACT n_sel as a one-element int64 tensor on the
+    device; when n_sel > max_out the caller regrows max_out and writes
+    the same lanes again."""
+    codes_padded = decode_blob(blob, B, Lp, n_cap, w)
+    return selected_keys(codes_padded, syncmer_select(codes_padded, w, s), w, s, max_out,
+                         sids, bufs, off)
 
 
 def extract_hoco_rows(codes: torch.Tensor, w: int, s: int, max_out: int) -> torch.Tensor:

@@ -6,9 +6,11 @@ plain PyTorch version.
 Counterparts of two parts of the JAX package's one device program per
 chunk (``oatk_tpu/kernels/syncmer.py:extract_hoco_fused_pallas``): the
 blob decode and N mark of ``_extract_hoco_packed_impl`` and
-``_selected_details``.  The kernel source is ``csrc/syncmer_details.cu``
-(its header notes the design and what bounds it), compiled at first use
-with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into the git-ignored
+``_selected_details``; on the key route also the device count's
+per-chunk key decode (``oatk_tpu/index/devcount.py`` ``keys_jit`` and
+``write_jit``).  The kernel source is ``csrc/syncmer_details.cu`` (its
+header notes the design and what bounds it), compiled at first use with
+``nvcc -gencode arch=compute_90a,code=sm_90a`` into the git-ignored
 ``build/kernels/`` directory at the repository root and loaded with
 ctypes.
 
@@ -20,12 +22,16 @@ ctypes.
   ``flat<<1|z`` (flat = b*L + p, ascending), row 1 the s-mer payload,
   row 2 the Murmur k-mer hash; slot ``[0, max_out]`` the exact n_sel,
   lanes at or past min(n_sel, max_out) 0.
+- :func:`selected_keys`: the same selections written straight into the
+  device count's five carry buffers at an offset, lane for lane what
+  ``index/devcount.py:chunk_keys`` decodes from the packed result; the
+  exact n_sel comes back as a one-element device tensor.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises, nothing falls back.  ``decode_blob.launches`` and
-``selected_details.launches`` count kernel launches (the decode makes
-two when the blob holds N positions, the details four: tile counts,
-their scan, the compaction, the details), and nothing else.
+or raises, nothing falls back.  ``decode_blob.launches``,
+``selected_details.launches`` and ``selected_keys.launches`` count
+kernel launches (the decode makes two when the blob holds N positions,
+K4 one per call), and nothing else.
 """
 from __future__ import annotations
 
@@ -43,7 +49,7 @@ _SO = f"{cuda_build.SO_DIR}/libsyncmer_details.so"
 
 _MURMUR_M = as_i64(0xC6A4A7935BD1E995)
 _SHIFTS = (6, 4, 2, 0)
-DETAILS_LAUNCHES = 4  # count, scan, compaction, details
+DETAILS_LAUNCHES = 1  # K4: compaction and details in one launch
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -66,13 +72,13 @@ def _load():
                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
             ]
             lib.syncmer_details_launch.restype = ctypes.c_int
-            lib.syncmer_details_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_void_p,
-            ]
+            lib.syncmer_details_launch.argtypes = (
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_int, ctypes.c_longlong]
+                + [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+            )
             lib.syncmer_details_tiles.restype = ctypes.c_longlong
-            lib.syncmer_details_tiles.argtypes = [ctypes.c_longlong]
+            lib.syncmer_details_tiles.argtypes = [ctypes.c_longlong, ctypes.c_int]
             _lib = lib
     return _lib
 
@@ -169,30 +175,107 @@ def _check_details(codes_padded: torch.Tensor, sel: torch.Tensor, w: int, s: int
     return B, L
 
 
-def selected_details(codes_padded: torch.Tensor, sel: torch.Tensor, w: int, s: int,
-                     max_out: int) -> torch.Tensor:
-    """Packed int64 ``[3, max_out+1]`` of the selected positions."""
-    B, L = _check_details(codes_padded, sel, w, s, max_out)
-    if _device_of("selected_details", codes_padded, sel) == "cpu":
-        return selected_details_plain(codes_padded, sel, w, s, max_out)
-    if B * L == 0:
-        # nothing selected: the plain version allocates and fills the zeros
-        return torch.zeros((3, max_out + 1), dtype=torch.int64, device=sel.device)
+_status_lock = threading.Lock()
+_status_bufs: dict = {}
+
+
+def _status(device: torch.device, n_tiles: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """K4's status words (one per tile) and its three counters on the
+    current stream of ``device``: zero when made, and every launch that
+    runs to its end leaves them zero.  Kept per (device, stream), since
+    launches on one stream never overlap; grown by doubling."""
+    key = (device.index, torch.cuda.current_stream(device).cuda_stream)
+    with _status_lock:
+        st = _status_bufs.get(key)
+        if st is None or st[0].numel() < n_tiles:
+            cap = max(n_tiles, 2 * st[0].numel() if st is not None else 1024)
+            st = (torch.zeros(cap, dtype=torch.int64, device=device),
+                  torch.zeros(4, dtype=torch.int32, device=device))
+            _status_bufs[key] = st
+        return st
+
+
+def _launch_details(codes_padded, sel, w, s, max_out, packed=None, keys=None, n_sel=None,
+                    sids=None) -> None:
+    B, L = sel.shape
     lib = _load()
-    out = torch.empty((3, max_out + 1), dtype=torch.int64, device=sel.device)
-    tiles = torch.empty(int(lib.syncmer_details_tiles(B * L)), dtype=torch.int64, device=sel.device)
-    with torch.cuda.device(sel.device):
+    dev = sel.device
+    with torch.cuda.device(dev):
+        status, ctr = _status(dev, int(lib.syncmer_details_tiles(B, L)))
+        ptrs = [0] * 5 if keys is None else [k.data_ptr() for k in keys]
         rc = lib.syncmer_details_launch(
-            codes_padded.data_ptr(), sel.data_ptr(), out.data_ptr(), tiles.data_ptr(), B, L, w, s,
-            max_out, torch.cuda.current_stream().cuda_stream,
+            codes_padded.data_ptr(), sel.data_ptr(), B, L, w, s, max_out,
+            0 if packed is None else packed.data_ptr(), *ptrs,
+            0 if n_sel is None else n_sel.data_ptr(), 0 if sids is None else sids.data_ptr(),
+            0 if sids is None else sids.numel(), status.data_ptr(), ctr.data_ptr(),
+            torch.cuda.current_stream().cuda_stream,
         )
     if rc != 0:
         raise RuntimeError(f"syncmer details kernel launch failed: CUDA error {rc}")
+
+
+def selected_details(codes_padded: torch.Tensor, sel: torch.Tensor, w: int, s: int,
+                     max_out: int) -> torch.Tensor:
+    """Packed int64 ``[3, max_out+1]`` of the selected positions."""
+    _check_details(codes_padded, sel, w, s, max_out)
+    if _device_of("selected_details", codes_padded, sel) == "cpu":
+        return selected_details_plain(codes_padded, sel, w, s, max_out)
+    out = torch.empty((3, max_out + 1), dtype=torch.int64, device=sel.device)
+    _launch_details(codes_padded, sel, w, s, max_out, packed=out)
     selected_details.launches += DETAILS_LAUNCHES
     return out
 
 
 selected_details.launches = 0
+
+
+def _check_keys(sids: torch.Tensor, bufs, off: int, max_out: int) -> None:
+    if sids.dtype != torch.int64 or sids.dim() != 1 or sids.numel() < 1 or not sids.is_contiguous():
+        raise ValueError(f"selected_keys: sids must be a non-empty contiguous 1-D int64 tensor, "
+                         f"got {sids.dtype} {tuple(sids.shape)}")
+    if len(bufs) != 5:
+        raise ValueError(f"selected_keys: need five key buffers, got {len(bufs)}")
+    want = (torch.int64,) * 4 + (torch.int32,)
+    for buf, dt in zip(bufs, want):
+        if buf.dtype != dt or buf.dim() != 1 or not buf.is_contiguous():
+            raise ValueError(f"selected_keys: key buffers must be contiguous 1-D "
+                             f"(int64 x4, int32), got {buf.dtype} {tuple(buf.shape)}")
+        if off < 0 or off + max_out > buf.numel():
+            raise ValueError(f"selected_keys: lanes [{off}, {off + max_out}) outside a buffer "
+                             f"of {buf.numel()}")
+
+
+def selected_keys(codes_padded: torch.Tensor, sel: torch.Tensor, w: int, s: int, max_out: int,
+                  sids: torch.Tensor, bufs, off: int) -> torch.Tensor:
+    """Write the selections' key lanes (hash, low, smer, m32, invalid) into
+    lanes ``[off, off+max_out)`` of the device count's buffers ``bufs``,
+    row b's read id being ``sids[b]``; returns the exact n_sel as an int64
+    tensor of one element on the buffers' device."""
+    _check_details(codes_padded, sel, w, s, max_out)
+    _check_keys(sids, bufs, off, max_out)
+    if _device_of("selected_keys", codes_padded, sel, sids, *bufs) == "cpu":
+        return selected_keys_plain(codes_padded, sel, w, s, max_out, sids, bufs, off)
+    n_sel = torch.empty(1, dtype=torch.int64, device=sel.device)
+    _launch_details(codes_padded, sel, w, s, max_out, keys=[b[off:] for b in bufs], n_sel=n_sel,
+                    sids=sids)
+    selected_keys.launches += DETAILS_LAUNCHES
+    return n_sel
+
+
+selected_keys.launches = 0
+
+
+def selected_keys_plain(codes_padded: torch.Tensor, sel: torch.Tensor, w: int, s: int,
+                        max_out: int, sids: torch.Tensor, bufs, off: int) -> torch.Tensor:
+    """Plain PyTorch version of the key route: the device count's decode
+    (``index/devcount.py:chunk_keys``) of the packed result, written into
+    the buffers."""
+    from ..index import devcount
+
+    packed = selected_details_plain(codes_padded, sel, w, s, max_out)
+    for buf, k in zip(bufs, devcount.chunk_keys(packed, sids, sel.shape[1])):
+        buf[off : off + max_out] = k
+    return packed[0, max_out:].clone()
 
 
 def murmur64_rows(blocks: torch.Tensor, n_bytes: int) -> torch.Tensor:

@@ -8,10 +8,13 @@ compaction with the per-selected details (K4).
   whole packed array; the JAX program leaves the payload and hash of its
   lanes past n_sel unmasked, so those lanes are zeroed on its side first.
 - A numpy model of csrc/syncmer_details.cu's index arithmetic (the
-  decode's words across row ends, tile counts, the chunked exclusive
-  scan, the in-warp ballot ranks, the per-lane Murmur blocks read as
-  aligned words from both ends of the window, the warp's strides of 32
-  blocks) against the plain version.
+  decode's two aligned word loads and byte masks across row ends; K4's
+  row-aligned tiles, in-warp ballot ranks, the decoupled look-back with
+  its row prefix run with the tiles' steps in a shuffled order, the
+  per-lane Murmur blocks read as aligned words from both ends of the
+  window, the warp's strides of 32 blocks, and the lanes K4 writes on
+  the packed and the key route, those past n_sel included) against the
+  plain versions.
 - The wrappers' contract, and ``cuda``-marked cases that hold the kernels
   against the plain versions on a card (skipped without one)."""
 import numpy as np
@@ -115,42 +118,82 @@ def test_decode_plain_marks_ns_past_read_ends():
 
 
 # --- a CPU model of the CUDA kernels' index arithmetic ---------------------
-# Test code only: it computes the packed result the way
-# csrc/syncmer_details.cu does, so that the kernels' tiles, scan, ranks and
-# Murmur blocks are checked here against the plain version.
+# Test code only: it computes what csrc/syncmer_details.cu computes the way
+# the kernels do (the decode's word loads and byte masks across row ends;
+# K4's row-aligned tiles, ballot ranks, decoupled look-back with its row
+# prefix, the per-lane Murmur blocks and the lanes it writes on both
+# routes), so that the kernels' arithmetic is checked here against the
+# plain versions.
 
-_THREADS, _ROUNDS = 256, 16
-_TILE = _THREADS * _ROUNDS
-_SCAN_THREADS, _SCAN_ITEMS = 1024, 8
+_THREADS, _ROUNDS = 256, 8
+_WARPS = _THREADS // 32
+_TILE = _WARPS * 32 * 4 * _ROUNDS  # 8192 sel entries per tile
 _M = np.uint64(0xC6A4A7935BD1E995)
 _U32 = np.uint64(0xFFFFFFFF)
+_W32, _W64 = 0xFFFFFFFF, (1 << 64) - 1
+_AGG_SHIFT = 47
+_INCL_MASK = (1 << _AGG_SHIFT) - 1
+_FLAG_AGG, _FLAG_INCL = 1 << 62, 2 << 62
+
+
+def _spread4(bb):
+    return ((bb >> 6) | (bb << 4) | (bb << 14) | (bb << 24)) & 0x03030303
+
+
+def _byte_mask(nib):
+    return (((nib * 0x00204081) & 0x01010101) * 0xFF) & _W32
+
+
+def _word(blob, a):
+    assert a % 4 == 0 and 0 <= a and a + 4 <= len(blob), "word outside the blob"
+    return int.from_bytes(blob[a:a + 4].tobytes(), "little")
+
+
+def _decode_segment(blob, row_bytes, b, h, c0, t0, t1, word):
+    """decode_segment: bytes t0 <= t < t1 of a chunk are columns c0 + t - t0
+    of row b; the bases from two aligned words, byte-swapped and shifted."""
+    p0 = c0 - 1 - t0
+    lo, hi = max(t0, -p0), min(t1, h - p0)
+    z = 0
+    if lo < hi:
+        at = b * row_bytes + ((p0 + lo) >> 2)
+        a0 = at & ~3
+        x = (int.from_bytes(_word(blob, a0).to_bytes(4, "little"), "big") << 32) | int.from_bytes(
+            _word(blob, a0 + 4).to_bytes(4, "little"), "big")
+        u0 = 4 * (at - a0) + ((p0 + lo) & 3)
+        z = (((x << (2 * u0)) & _W64) >> (2 * lo)) >> 32
+    seg = ((1 << t1) - 1) & ~((1 << t0) - 1)
+    bas = ((1 << hi) - 1) & ~((1 << lo) - 1) if lo < hi else 0
+    for k in range(4):
+        codes = _spread4((z >> (24 - 8 * k)) & 0xFF)
+        mb = _byte_mask((bas >> (4 * k)) & 0xF)
+        ms = _byte_mask((seg >> (4 * k)) & 0xF)
+        word[k] = (word[k] & ~ms & _W32) | (ms & ((codes & mb) | (0x05050505 & ~mb & _W32)))
 
 
 def _model_decode(blob, B, Lp, n_cap, w, per=16):
     """blob_decode_kernel (row b0 writes the 16-byte chunks of the flat
-    output that start in it; a chunk's bytes may run into the next rows),
-    then blob_n_scatter_kernel."""
+    output that start in it, one segment per row a chunk touches), then
+    blob_n_scatter_kernel."""
     Wd = 1 + Lp + w + 2
     total = B * Wd
-    hl = blob[B * Lp // 4: B * Lp // 4 + 4 * B].view(np.int32)
+    row_bytes = Lp // 4
+    hl = blob[B * row_bytes: B * row_bytes + 4 * B].view(np.int32)
     out = np.full(-(-total // per) * per, 255, np.uint8)
     written = np.zeros(len(out), np.int64)
     for b0 in range(B):
         r0 = b0 * Wd
         for f0 in range(-(-r0 // per) * per, r0 + Wd, per):
-            b, c = b0, f0 - r0
-            h = min(hl[b], Lp)
-            for t in range(min(per, total - f0)):
-                if c == Wd:
-                    b, c = b + 1, 0
-                    h = min(hl[b], Lp)
-                p = c - 1
-                v = 5
-                if 0 <= p < h:
-                    v = (blob[b * (Lp // 4) + (p >> 2)] >> (6 - 2 * (p & 3))) & 3
-                out[f0 + t] = v
+            nb = min(per, total - f0)
+            word = [0, 0, 0, 0]
+            b, c, t = b0, f0 - r0, 0
+            while t < nb:
+                ln = min(nb - t, Wd - c)
+                _decode_segment(blob, row_bytes, b, min(int(hl[b]), Lp), c, t, t + ln, word)
+                t, b, c = t + ln, b + 1, 0
+            for t in range(nb):
+                out[f0 + t] = (word[t >> 2] >> (8 * (t & 3))) & 0xFF
                 written[f0 + t] += 1
-                c += 1
     assert (written[:total] == 1).all()  # every byte once
     out = out[:total].reshape(B, Wd)
     for v in blob[B * Lp // 4 + 4 * B: B * Lp // 4 + 4 * B + 4 * n_cap].view(np.int32):
@@ -168,55 +211,98 @@ def test_model_of_decode_matches_plain(B, Lp, w):
     assert np.array_equal(_model_decode(blob, B, Lp, n_cap, w), ref)
 
 
-def _model_scan(cnt):
-    """sel_scan_kernel: chunks of 1024 threads x 8 items, a warp scan of the
-    threads' sums, a scan of the warps' sums, and the carry."""
-    out = np.empty_like(cnt)
-    carry = 0
-    span = _SCAN_THREADS * _SCAN_ITEMS
-    for base in range(0, len(cnt), span):
-        v = np.zeros(span, np.int64)
-        part = cnt[base:base + span]
-        v[:len(part)] = part
-        v = v.reshape(_SCAN_THREADS, _SCAN_ITEMS)
-        local = v.sum(1)
-        lw = local.reshape(32, 32)  # [warp, lane]
-        incl = np.cumsum(lw, axis=1)
-        wtot = incl[:, 31]
-        wex = np.cumsum(wtot) - wtot
-        run = (carry + wex[:, None] + incl - lw).reshape(-1)
-        ex = run[:, None] + np.cumsum(v, axis=1) - v
-        out[base:base + span] = ex.reshape(-1)[:len(part)]
-        carry += int(wtot.sum())
-    return out, carry
+def _tile_ranks(codes):
+    """The block-local rank of each nonzero of a tile (warp wid owns codes
+    1024 wid + 128 r + 4 lane + c): the warps before, the rounds before,
+    the round's warp scan of the lanes' counts (inclusive, less the
+    lane's own), and the lane's own codes before c."""
+    nz = codes.reshape(_WARPS, _ROUNDS, 32, 4) != 0
+    per_warp = nz.sum((1, 2, 3))
+    per_round = nz.sum((2, 3))
+    at = (np.cumsum(per_warp) - per_warp)[:, None] + np.cumsum(per_round, 1) - per_round
+    lane_cnt = nz.sum(3)
+    below = np.cumsum(lane_cnt, 2) - lane_cnt
+    own = np.cumsum(nz, 3) - nz
+    rank = at[:, :, None, None] + below[:, :, :, None] + own
+    return nz.reshape(-1), rank.reshape(-1), int(nz.sum())
 
 
-def _model_compact(sel_flat, max_out):
-    """sel_count_kernel, sel_scan_kernel, sel_compact_kernel: rows 0 and 1 of the
-    result below max_out, and the count slot."""
-    n = len(sel_flat)
-    n_tiles = -(-n // _TILE)
-    pad = np.zeros(n_tiles * _TILE, np.int64)
-    pad[:n] = sel_flat
-    # sel_count_kernel: thread t of tile b reads entries b*TILE + r*THREADS + t
-    cnt = (pad.reshape(n_tiles, _ROUNDS, _THREADS) != 0).sum((1, 2)).astype(np.int64)
-    off, total = _model_scan(cnt)
-    # sel_compact_kernel: warp wid of tile b owns entries b*TILE + wid*512 +
-    # r*32 + lane, in that order
-    nz = pad.reshape(n_tiles, _THREADS // 32, _ROUNDS, 32) != 0
-    wcnt = nz.sum((2, 3))
-    at_warp = off[:, None] + np.cumsum(wcnt, axis=1) - wcnt
-    rcnt = nz.sum(3)
-    at_round = at_warp[:, :, None] + np.cumsum(rcnt, axis=2) - rcnt
-    below = np.cumsum(nz, axis=3) - nz  # popc(ballot & lanes below)
-    j = (at_round[..., None] + below).reshape(-1)
-    flat = np.arange(n_tiles * _TILE)
-    keep = nz.reshape(-1) & (j < max_out)
-    out = np.zeros((3, max_out + 1), np.int64)
-    out[0, j[keep]] = flat[keep]
-    out[1, j[keep]] = pad[keep]
-    out[0, max_out] = total
-    return out
+def _look_back(status, t, row_first):
+    """look_back: windows of 32 status words, nearest first; yields while a
+    word it needs is not yet published (the warp reads the window again),
+    returns (g, r)."""
+    g = r = 0
+    done = False
+    hi = t - 1
+    span = 32
+    while not done or hi >= row_first:
+        js = [hi - q for q in range(span)]
+        words = [status[j] if j >= 0 and (not done or j >= row_first) else _FLAG_INCL for j in js]
+        if any(wd >> 62 == 0 for wd in words):
+            yield
+            continue
+        aggs = [(wd >> _AGG_SHIFT) & 0x7FFF for wd in words]
+        if not done:
+            incl = [q for q in range(span) if words[q] >> 62 == 2]
+            f = incl[0] if incl else span
+            g += sum(aggs[:f]) + (words[f] & _INCL_MASK if incl else 0)
+            done = bool(incl)
+        r += sum(a for j, a in zip(js, aggs) if j >= row_first)
+        hi -= span
+    return g, r
+
+
+def _model_tiles(sel, rng, tile=_TILE):
+    """sel_tiles_kernel's compaction: tiles that never straddle a row, taken
+    in ticket order, each publishing its aggregate, looking back and
+    publishing its inclusive prefix, their steps interleaved at random.
+    Returns (j, b, p, code, idx) of every selection and n_sel."""
+    B, L = sel.shape
+    tpr = -(-L // tile)
+    n_tiles = B * tpr
+    status = [0] * n_tiles
+    found = []
+
+    def run(t):
+        b = t // tpr
+        row_first = b * tpr
+        p_lo = (t - row_first) * tile
+        codes = np.zeros(tile, np.int64)
+        part = sel[b, p_lo:min(L, p_lo + tile)]
+        codes[:len(part)] = part
+        nz, rank, agg = _tile_ranks(codes) if tile == _TILE else _flat_ranks(codes)
+        g = r = 0
+        if t > 0:
+            status[t] = _FLAG_AGG | (agg << _AGG_SHIFT)
+            yield
+            g, r = yield from _look_back(status, t, row_first)
+        status[t] = _FLAG_INCL | (agg << _AGG_SHIFT) | (g + agg)
+        k = np.flatnonzero(nz)
+        assert (k < 1 << 14).all()  # the shared list's 16-bit entries: column << 2 | code
+        found.append((g + rank[k], np.full(len(k), b), p_lo + k, codes[k], r + rank[k]))
+
+    live, started = {}, 0
+    while started < n_tiles or live:
+        if started < n_tiles and (not live or rng.random() < 0.3):
+            live[started] = run(started)  # the next ticket
+            started += 1
+            continue
+        t = int(rng.choice(list(live)))
+        try:
+            next(live[t])
+        except StopIteration:
+            del live[t]
+    n_sel = status[-1] & _INCL_MASK if n_tiles else 0
+    cols = [np.concatenate(c) for c in zip(*found)]
+    order = np.argsort(cols[0])
+    assert np.array_equal(cols[0][order], np.arange(n_sel))  # every selection one lane
+    return [c[order] for c in cols], n_sel
+
+
+def _flat_ranks(codes):
+    """Ranks of a tile of another size (the look-back tests): ascending."""
+    nz = codes != 0
+    return nz, np.cumsum(nz) - nz, int(nz.sum())
 
 
 def _load_codes32(mem, begin, w, lo):
@@ -266,22 +352,19 @@ def _window_block(mem, begin, w, i, rc):
     return np.where(rc, rev, fwd) & _valid_mask(w - 32 * i)
 
 
-def _model_details(cp, out, L, w, s, max_out):
-    """sel_details_kernel on the compacted rows: the s-mer payload by an OR
-    over s lanes, Murmur over the lanes' blocks in strides of 32, tails
-    zeroed."""
+def _model_details(cp, b, p, oc, w, s):
+    """window_details of each selected window (row b, column p, code oc):
+    the s-mer payload by an OR over s lanes, Murmur over the lanes' blocks
+    in strides of 32.  Returns (z, payload, hash) as uint64 arrays."""
     B, Wd = cp.shape
     mem = np.zeros(-(-cp.size // 512) * 512, np.uint8)  # the allocation's 512 B granules
     mem[:cp.size] = cp.reshape(-1)
     mem[cp.size:] = np.random.default_rng(0).integers(0, 256, len(mem) - cp.size)  # slack
     q = w - s + 1
-    n_eff = min(int(out[0, max_out]), max_out)
-    flat, oc = out[0, :n_eff], out[1, :n_eff]
-    b = flat // L
-    begin = b * Wd + 1 + (flat - b * L)
+    begin = b * Wd + 1 + p
     u = np.uint64
-    f = np.zeros(n_eff, u)
-    r = np.zeros(n_eff, u)
+    f = np.zeros(len(b), u)
+    r = np.zeros(len(b), u)
     for lane in range(s):
         c = (mem[begin + np.where(oc == 1, 0, q - 1) + lane] & 3).astype(u)
         f |= c << u(2 * (s - 1 - lane))
@@ -292,7 +375,7 @@ def _model_details(cp, out, L, w, s, max_out):
 
     n_bytes = (w - 1) // 4 + 1
     n_full, nblk = n_bytes >> 3, -(-n_bytes // 8)
-    h = np.full(n_eff, u(1234) ^ (u(n_bytes) * _M), u)
+    h = np.full(len(b), u(1234) ^ (u(n_bytes) * _M), u)
     for g in range(0, nblk, 32):
         lanes = [g + lane for lane in range(32) if g + lane < nblk]
         v = [_window_block(mem, begin, w, i, z) for i in lanes]
@@ -303,25 +386,60 @@ def _model_details(cp, out, L, w, s, max_out):
     h ^= h >> u(47)
     h *= _M
     h ^= h >> u(47)
+    return z.astype(u), payload, h
 
+
+def _model_lanes(cp, sel, w, s, max_out, seed):
+    """The selections (tiles, look-back) and their details below max_out,
+    the tail blocks' lanes from n = min(n_sel, max_out) to max_out (each
+    lane written once); returns (selections, details, n_sel, n)."""
+    (j, b, p, oc, idx), n_sel = _model_tiles(sel, np.random.default_rng(seed))
+    n = min(n_sel, max_out)
+    nt = _THREADS
+    z_count = min(max(-(-max_out // (8 * nt)), 1), 264)  # tail blocks
+    tail = np.concatenate([np.arange(n + zb * nt + t, max_out, z_count * nt)
+                           for zb in range(z_count) for t in range(nt)] + [np.zeros(0, int)])
+    assert np.array_equal(np.sort(tail), np.arange(n, max_out))
+    sl = slice(0, n)
+    with np.errstate(over="ignore"):
+        det = _model_details(cp, b[sl], p[sl], oc[sl], w, s)
+    return (b[sl], p[sl], idx[sl]), det, n_sel, n
+
+
+def _model(cp, sel, w, s, max_out, seed=0):
+    """The packed result as K4 writes it."""
+    B, L = sel.shape
+    (b, p, _idx), (z, payload, h), n_sel, n = _model_lanes(cp, sel, w, s, max_out, seed)
     res = np.zeros((3, max_out + 1), np.int64)
-    res[0, :n_eff] = (flat << 1) | z
-    res[1, :n_eff] = payload.view(np.int64)
-    res[2, :n_eff] = h.view(np.int64)
-    res[0, max_out] = out[0, max_out]
+    res[0, :n] = ((b * L + p) << 1) | z.astype(np.int64)
+    res[1, :n] = payload.view(np.int64)
+    res[2, :n] = h.view(np.int64)
+    res[0, max_out] = n_sel
     return res
 
 
-def _model(cp, sel, w, s, max_out):
-    B, L = sel.shape
-    with np.errstate(over="ignore"):
-        return _model_details(cp, _model_compact(sel.reshape(-1), max_out), L, w, s, max_out)
+def _model_keys(cp, sel, w, s, max_out, sids, seed=0):
+    """The five key lanes as K4's key epilogue writes them, and n_sel."""
+    u = np.uint64
+    (b, p, idx), (z, payload, h), n_sel, n = _model_lanes(cp, sel, w, s, max_out, seed)
+    sids = sids.astype(u)
+    bh = np.zeros(max_out, u)
+    bl = np.zeros(max_out, u)
+    bs = np.zeros(max_out, u)
+    bm = np.zeros(max_out, np.int64)
+    bv = np.ones(max_out, np.int32)
+    bh[:n], bs[:n] = h, payload
+    bl[:n] = (sids[np.minimum(b, len(sids) - 1)] << u(32)) | (idx.astype(u) << u(1)) | z
+    bm[:n] = (p << 1) | z.astype(np.int64)
+    bv[:n] = 0
+    bl[n:] = (sids[0] << u(32)) | (np.arange(max_out - n, dtype=u) << u(1))
+    return (bh.view(np.int64), bl.view(np.int64), bs.view(np.int64), bm, bv), n_sel
 
 
-def _inputs(w, s, seed, B=3, n_rate=None):
+def _inputs(w, s, seed, B=3, n_rate=None, Lp=None, dense=False):
     rng = np.random.default_rng(seed)
-    Lp = max(1024, -(-(4 * w + 600) // 16) * 16)
-    blob, n_cap = _blob(rng, B, Lp, w, n_rate=0.3 / w if n_rate is None else n_rate)
+    Lp = Lp or max(1024, -(-(4 * w + 600) // 16) * 16)
+    blob, n_cap = _blob(rng, B, Lp, w, n_rate=0.3 / w if n_rate is None else n_rate, dense=dense)
     cp = SD.decode_blob_plain(torch.from_numpy(blob), B, Lp, n_cap, w)
     return cp, syncmer_select_plain(cp, w, s)
 
@@ -333,32 +451,65 @@ def test_model_of_kernels_matches_plain(w, s):
     assert n > 0
     for max_out in (n + 37, max(1, n // 2)):  # room to spare, and an overflow
         ref = SD.selected_details_plain(cp, sel, w, s, max_out).numpy()
-        got = _model(cp.numpy(), sel.numpy(), w, s, max_out)
+        got = _model(cp.numpy(), sel.numpy(), w, s, max_out, seed=max_out)
         assert np.array_equal(got, ref), max_out
 
 
 @pytest.mark.parametrize("w,s", [(15, 5), (51, 11), (33, 7)])
 def test_model_of_kernels_dense_selections(w, s):
     """Near-periodic codes: most positions select, so tiles, warps and
-    rounds hold many ranks each."""
-    rng = np.random.default_rng(w)
-    B, Lp = 4, 8192
-    blob, n_cap = _blob(rng, B, Lp, w, dense=True, n_rate=1e-3)
-    cp = SD.decode_blob_plain(torch.from_numpy(blob), B, Lp, n_cap, w)
-    sel = syncmer_select_plain(cp, w, s)
+    rounds hold many ranks each; rows of 5.25 tiles (L not a multiple of
+    the tile), so every row's look-back crosses several tiles."""
+    cp, sel = _inputs(w, s, w, B=3, n_rate=1e-3, Lp=21 * _TILE // 4, dense=True)
+    B, L = sel.shape
     n = int((sel != 0).sum())
-    assert n > B * Lp // 50
+    assert n > B * L // 50 and L % _TILE
     for max_out in (n, n - 1, 4097):
         ref = SD.selected_details_plain(cp, sel, w, s, max_out).numpy()
-        assert np.array_equal(_model(cp.numpy(), sel.numpy(), w, s, max_out), ref), max_out
+        assert np.array_equal(_model(cp.numpy(), sel.numpy(), w, s, max_out, seed=max_out), ref), max_out
 
 
-def test_model_scan_crosses_chunks():
-    """More tile counts than one pass of the scan block takes (8,192):
-    the carry joins the chunks."""
-    cnt = np.random.default_rng(5).integers(0, 4097, 20_000).astype(np.int64)
-    got, total = _model_scan(cnt)
-    assert np.array_equal(got, np.cumsum(cnt) - cnt) and total == cnt.sum()
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_model_look_back_in_any_order(seed):
+    """The look-back over tiles of 64 codes whose steps interleave at
+    random: every selection gets its lane in ascending flat order and its
+    rank within its row, with rows of many tiles (some with none
+    selected) and windows of 32 status words that mix aggregates and
+    inclusive prefixes."""
+    rng = np.random.default_rng(seed)
+    B, L = 5, 64 * 70 + 17
+    sel = np.where(rng.random((B, L)) < 0.05, rng.integers(1, 3, (B, L)), 0)
+    sel[2] = 0  # a row with no selection
+    sel[3, : 64 * 40] = 0  # a row whose first 40 tiles select nothing
+    (j, b, p, oc, idx), n_sel = _model_tiles(sel, rng, tile=64)
+    fb, fp = np.nonzero(sel)
+    assert n_sel == len(fb)
+    assert np.array_equal(b, fb) and np.array_equal(p, fp) and np.array_equal(oc, sel[fb, fp])
+    first = np.searchsorted(fb, fb)
+    assert np.array_equal(idx, np.arange(len(fb)) - first)
+
+
+@pytest.mark.parametrize("w,s", [(15, 5), (51, 11), (1001, 31)])
+def test_model_of_key_lanes_matches_plain(w, s):
+    """The key epilogue: every lane of the five buffers, those past n
+    included, equals the plain key route's, with room to spare and with
+    an overflow."""
+    cp, sel = _inputs(w, s, 8000 + w, B=4)
+    B = sel.shape[0]
+    n = int((sel != 0).sum())
+    sids = np.array([7, 3, 11, 5], np.int64)[:B] + (1 << 30)
+    for max_out in (n + 45, max(1, n // 3)):
+        got, n_sel = _model_keys(cp.numpy(), sel.numpy(), w, s, max_out, sids, seed=max_out)
+        bufs = _key_bufs(max_out + 10)
+        ref_n = SD.selected_keys_plain(cp, sel, w, s, max_out, torch.from_numpy(sids), bufs, 10)
+        assert n_sel == int(ref_n[0]) == n
+        for g, r in zip(got, bufs):
+            assert np.array_equal(g, r[10:].numpy()), max_out
+
+
+def _key_bufs(n, device="cpu"):
+    """Five key buffers filled with a marker, as a lane nobody wrote."""
+    return tuple(torch.full((n,), 99, dtype=dt, device=device) for dt in (torch.int64,) * 4 + (torch.int32,))
 
 
 @pytest.mark.parametrize("w,s", CASES + LARGE)

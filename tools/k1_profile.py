@@ -16,9 +16,10 @@ with the 110 Mbp recipe of the ``chip_smoke.py`` beside this file when it
 is absent.  ``syncasm`` runs at k=1001, s=31, c=30 (EC on, 3 unzip
 rounds) once to warm up, then N runs under ``torch.profiler`` (for each:
 wall, ``syncmer_select_kernel`` launches and their summed device time,
-the same for each kernel of the decode and details (none in a checkout
-that predates them), the number of device events and their summed
-time, the sha256 of ``.utg.final.gfa``), then W runs
+the same for each kernel of the decode and details named by the
+``chip_smoke.py`` beside this file, the number of device events, their
+summed time and their number per chunk, the sha256 of
+``.utg.final.gfa``), then W runs
 without it, each with its wall time, stage split and the load stage's
 own split (``load.*``: file read, parse wait, extraction, assembly).
 """
@@ -73,12 +74,14 @@ def main() -> int:
         tm = dict(res.timings or {})
         # the load stage's own split (read, parse wait, extract, assemble)
         tm.update({f"load.{k}": v for k, v in (getattr(res.read_db, "load_timings", None) or {}).items()})
+        # chunks counted on the device (none in a checkout whose count keeps no stats)
+        tm["chunks"] = getattr(getattr(res.read_db, "_devcount_stats", None), "n_append", 0)
         return time.perf_counter() - t0, tm
 
     print(f"[k1prof] {smoke.card_line()}; package from {tag}; warm-up run {run()[0]:.3f} s", flush=True)
     for i in range(args.runs):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            wall, _ = run()
+            wall, tm = run()
         dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         k1 = [e.time_range.elapsed_us() for e in dev if "syncmer_select_kernel" in e.name]
         busy = sum(e.time_range.elapsed_us() for e in dev)
@@ -90,11 +93,12 @@ def main() -> int:
             sha = hashlib.sha256(f.read()).hexdigest()
         print(f"[k1prof] {tag} profiled run {i}: wall {wall:.3f} s; syncmer_select_kernel "
               f"{len(k1)} launches, {sum(k1):.1f} us device (largest {max(k1, default=0):.1f} us); "
-              f"{'; '.join(chain)}; all device events: {len(dev)}, {busy:.1f} us; "
+              f"{'; '.join(chain)}; all device events: {len(dev)}, {busy:.1f} us, "
+              f"{len(dev) / max(1, tm['chunks']):.1f} per chunk over {tm['chunks']} chunks; "
               f".utg.final.gfa sha256 {sha[:16]}", flush=True)
     for i in range(args.walls):
         wall, tm = run()
-        stages = " ".join(f"{k}={v * 1000:.1f}ms" for k, v in tm.items())
+        stages = " ".join(f"{k}={v * 1000:.1f}ms" for k, v in tm.items() if k != "chunks")
         print(f"[k1prof] {tag} wall {wall:.4f} s; {stages}", flush=True)
     return 0
 
