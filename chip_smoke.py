@@ -44,12 +44,18 @@ Phases (any failure makes the exit code non-zero):
 6. full ``syncasm`` on the card on the 110 Mbp organelle-plus-nuclear
    set (k=1001, s=31, c=30, EC on, 3 unzip rounds): wall time, stage
    split and the load stage's own split (``load.extract``: the loader's
-   main-thread extraction), the launch counts of K1, K3d and K4 (each
-   must be above 0, every K4 launch on the key route), ``torch.nonzero``
-   calls inside the loader and ``chunk_keys`` calls (both must be 0),
+   main-thread queueing, ``load.finalize_dispatch``, ``load.nsel_drain``),
+   the launch counts of K1, K3d and K4 (each must be above 0, every K4
+   launch on the key route), ``torch.nonzero`` calls inside the loader
+   and ``chunk_keys`` calls (both must be 0), the loader's counters (one
+   n_sel read per file and none per chunk, or the phase fails; regrows,
+   pinned staging bytes at 110 and 9.9 Mbp, uploads on the copy stream),
    peak device memory, S/L line counts and the sha256 of
-   ``.utg.final.gfa``; then one run under torch.profiler: each kernel's
-   summed device time, all device events and their number per chunk;
+   ``.utg.final.gfa``; then one run under torch.profiler (each kernel's
+   summed device time, all device events and their number per chunk,
+   the host-to-device copies from pinned memory and those that overlap
+   another chunk's K1 or K4) and a third run: the three GFAs must be
+   byte-identical;
 7. ``oatk`` (syncasm -> annotation -> pathfinder) through its CLI at its
    defaults on the same 110 Mbp set, with a stub nhmmscan written into
    the work directory: on the card with OATK_TPU_WF_BACKEND=device (EC's
@@ -437,9 +443,9 @@ def kernel_name(name: str) -> str:
     return name.replace("(anonymous namespace)::", "").split("(")[0].split("<")[0].removeprefix("void ")
 
 
-def profile_device(fn) -> list:
-    """(name, device us) of every device event (kernels, copies, fills)
-    that fn() made, by torch.profiler."""
+def profile_spans(fn) -> list:
+    """(name, start us, end us) of every device event (kernels, copies,
+    fills) that fn() made, by torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -447,8 +453,25 @@ def profile_device(fn) -> list:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def profile_device(fn) -> list:
+    """(name, device us) of every device event that fn() made."""
+    return [(name, t1 - t0) for name, t0, t1 in profile_spans(fn)]
+
+
+def copy_overlaps(spans) -> tuple[int, int, int]:
+    """Of a profiled run's host-to-device copies: (those from pinned
+    memory, all of them, those that overlap a K1 or K4 launch).  A
+    chunk's kernels wait for its own upload, so a copy that overlaps one
+    is another chunk's."""
+    kern = [(t0, t1) for name, t0, t1 in spans
+            if "syncmer_select_kernel" in name or "sel_tiles_kernel" in name]
+    copies = [(name, t0, t1) for name, t0, t1 in spans if "HtoD" in name]
+    hit = sum(any(t0 < k1 and k0 < t1 for k0, k1 in kern) for _n, t0, t1 in copies)
+    return sum("Pinned" in name for name, _a, _b in copies), len(copies), hit
 
 
 def keys_case(cp, sel, w: int, s: int, max_out: int) -> tuple[bool, int, int]:
@@ -677,19 +700,29 @@ def details_timing(bt, cp, sel, B, Lp, n_cap, w, s, max_out, reps) -> dict:
 def chunk_events(blob, B, Lp, n_cap, w, s, max_out, device) -> dict:
     """The device events and K4 launches of one loader chunk on the card
     (upload, the extraction chain, the n_sel read), by torch.profiler: on
-    the packed route (host counting) and on the key route (device
-    counting: the sids upload too)."""
+    the packed route (host counting: a pageable upload, the read per
+    chunk) and on the key route as the loader queues it (blob and sids in
+    one pinned upload on the copy stream, the append; the loader reads
+    n_sel once per file, here once for the chunk)."""
     import numpy as np
 
-    from oatk_tpu_torch.asm.reads import extract_chunk
+    from oatk_tpu_torch.asm.reads import Uploads, extract_chunk
     from oatk_tpu_torch.index.devcount import DevCountState
     from oatk_tpu_torch.kernels import syncmer_details as SD
 
     st = DevCountState(device, cap_hint=8 * max_out)
+    up = Uploads(device)
     sids = np.arange(B, dtype=np.int64)
+
+    def key_chunk():
+        blob_d, sids_d = up.put(blob, sids)
+        _off, n_sel = st.append(blob_d, B, Lp, n_cap, w, s, max_out, sids_d)
+        up.done()
+        return int(n_sel[0])
+
     out = {}
     for route, fn in (("packed", lambda: extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device)),
-                      ("keys", lambda: extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device, st, sids))):
+                      ("keys", key_chunk)):
         fn()  # warm
         k4 = SD.selected_details.launches + SD.selected_keys.launches
         ev = profile_device(fn)
@@ -1139,7 +1172,8 @@ def phase_parity(work: str) -> dict:
             res, wall = run_syncasm(fa, k, s, c, out, dev)
             outs[dev] = out
             if dev == "cuda":
-                info[name] = dict(fa=fa, ksc=(k, s, c), timings=res.timings or {}, sha={})
+                info[name] = dict(fa=fa, ksc=(k, s, c), timings=res.timings or {}, sha={},
+                                  load_counters=getattr(res.read_db, "load_counters", {}))
             log(f"[parity] {name} k={k} s={s} c={c} device={dev}: wall {wall:.3f} s")
         for suf in (".utg.gfa", ".utg.final.gfa"):
             a = gfa_summary(outs["cuda"] + suf)
@@ -1231,13 +1265,17 @@ DEVICE_KERNELS = ("syncmer_select_kernel", "blob_decode_kernel", "blob_n_scatter
                   "sel_tiles_kernel", "sel_details_kernel")
 
 
-def phase_full(work: str) -> dict:
+def phase_full(work: str, parity: dict) -> dict:
     """The main path on the card at 110 Mbp, with the launch counts, the
     ``torch.nonzero`` calls inside the loader and the ``chunk_keys`` calls
     of the run (both must be 0: K4 writes the device count's keys), the
-    loader's main-thread extraction time, and one profiled run: each
-    kernel's summed device time, all device events and their number per
-    chunk."""
+    loader's main-thread extraction time and its counters (one n_sel
+    read per file and none per chunk, or the phase fails; regrows,
+    pinned staging bytes beside the 10 Mbp run's, copy-stream uploads),
+    one profiled run (each kernel's summed device time, all device
+    events and their number per chunk, the host-to-device copies that
+    overlap another chunk's K1 or K4) and a third run: the three GFAs
+    must be byte-identical."""
     import torch
 
     from oatk_tpu_torch.asm.pipeline import resolve_device
@@ -1264,6 +1302,8 @@ def phase_full(work: str) -> dict:
     summ = gfa_summary(out + ".utg.final.gfa")
     stages = " ".join(f"{k}={v * 1000:.1f}ms" for k, v in (res.timings or {}).items())
     lt = getattr(res.read_db, "load_timings", None) or {}
+    lc = getattr(res.read_db, "load_counters", None) or {}
+    lc10 = parity["sets"]["10mbp"]["load_counters"]
     log(f"[full] 110 Mbp ({n_bp} bp) k={K_MAIN} s={S_MAIN} c=30 EC on, 3 unzip rounds: "
         f"wall {wall:.3f} s ({n_bp / 1e6 / wall:.3f} Mbp/s)")
     log(f"[full] [T::syncasm] {stages}")
@@ -1276,8 +1316,17 @@ def phase_full(work: str) -> dict:
         f"{ck['n']} (self-check on the key route's plain version: {kprobe['n']})")
     log(f"[full] .utg.final.gfa: S={summ['S']} L={summ['L']} seg_bp={summ['seg_bp']} "
         f"sha256={summ['sha256']}")
+    one_read = (lc.get("files") == 1 and lc.get("nsel_reads", 0) - lc.get("regrows", 0) == 1
+                and lc.get("chunk_reads") == 0 and lc.get("copy_uploads") == n_chunks)
+    log(f"[full] loader counters: n_sel reads per file {lc.get('nsel_reads')}/{lc.get('files')} "
+        f"(per chunk {lc.get('chunk_reads')}), regrows {lc.get('regrows')}, pinned bytes "
+        f"{lc.get('pinned_bytes')} at 110 Mbp and {lc10.get('pinned_bytes')} at 9.9 Mbp, "
+        f"copy-stream uploads {lc.get('copy_uploads')} over {n_chunks} chunks "
+        f"(9.9 Mbp: {lc10.get('copy_uploads')}); one read per file: {one_read}")
     prof_out = os.path.join(work, "full_110mbp_prof")
-    ev = profile_device(lambda: run_syncasm(fa, K_MAIN, S_MAIN, 30, prof_out, "cuda", ec=True, unzip=3))
+    spans = profile_spans(lambda: run_syncasm(fa, K_MAIN, S_MAIN, 30, prof_out, "cuda", ec=True, unzip=3))
+    ev = [(name, t1 - t0) for name, t0, t1 in spans]
+    pinned, n_h2d, overlap = copy_overlaps(spans)
     by = {}
     for name, us in ev:
         key = next((k for k in DEVICE_KERNELS if k in name), "other")
@@ -1289,13 +1338,23 @@ def phase_full(work: str) -> dict:
         + f"; the chain without K1 {sum(by.get(k, (0, 0))[1] for k in DEVICE_KERNELS[1:]):.1f} us; "
         f"{len(ev) / max(1, n_chunks):.1f} device events per chunk; "
         f"GFA equal to the run above: {same_prof}")
+    log(f"[full] profiled run: {n_h2d} host-to-device copies, {pinned} from pinned memory, "
+        f"{overlap} overlapping a K1 or K4 launch of another chunk")
+    third_out = os.path.join(work, "full_110mbp_3")
+    _res3, wall3 = run_syncasm(fa, K_MAIN, S_MAIN, 30, third_out, "cuda", ec=True, unzip=3)
+    sha3 = gfa_summary(third_out + ".utg.final.gfa")["sha256"]
+    same_gfa = same_prof and sha3 == summ["sha256"]
+    log(f"[full] third run: wall {wall3:.3f} s; .utg.final.gfa sha256 {sha3[:16]}; the 110 Mbp GFA "
+        f"identical in all three runs: {same_gfa} (the hash on record: f00dc57aff042c80, "
+        f"this run's {summ['sha256'][:16]})")
     ok = (cnt["launches"] > 0 and cnt["decode"] > 0 and cnt["details"] > 0
           and cnt["keys"] == cnt["details"] and nz["load"] == 0 and probe["n"] > 0
           and ck["n"] == 0 and kprobe["n"] > 0 and summ["S"] > 0 and res.scg is not None
-          and same_prof)
+          and same_gfa and one_read)
     return dict(ok=ok, fa=fa, n_bp=n_bp, sha256=summ["sha256"], read_db=res.read_db,
                 timings=res.timings or {}, out=out, wall=wall, extract_s=lt.get("extract"),
-                events=len(ev), chunks=n_chunks, chunk_keys_calls=ck["n"], **cnt)
+                events=len(ev), chunks=n_chunks, chunk_keys_calls=ck["n"], load_counters=lc,
+                copies_overlapping=overlap, **cnt)
 
 
 FAKE_NHMMSCAN = """#!/bin/bash
@@ -2074,7 +2133,7 @@ def main() -> int:
     ok &= wf["ok"]
     parity = phase_parity(WORK)
     ok &= parity["ok"]
-    full = phase_full(WORK)
+    full = phase_full(WORK, parity)
     ok &= full["ok"]
     oatk = phase_oatk(WORK, full["fa"], full["n_bp"], full["sha256"])
     ok &= oatk["ok"]

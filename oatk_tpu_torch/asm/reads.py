@@ -275,38 +275,140 @@ def _chunk_n_positions(isn_idx, st, en, Lp):
     return np.concatenate(parts)
 
 
-def extract_chunk(blob: np.ndarray, B, Lp, n_cap, w, s, max_out, device, devcount=None,
-                  sids=None):
-    """Upload one chunk's blob and extract its syncmers, regrowing the
-    capacity in a loop until it holds every selected position.  Returns
-    (packed [3, max_out+1] on ``device``, n_sel, max_out).
-
-    With ``devcount`` (a :class:`~oatk_tpu_torch.index.devcount.DevCountState`)
-    the key route runs instead: the chunk's key lanes go straight into
-    the count buffers at a reserved offset, row b's read id being
-    ``sids[b]`` (uploaded once), an overflow reserves again and rewrites
-    the same lanes, and the lanes are committed once n_sel <= max_out;
-    packed is then None."""
+def extract_chunk(blob: np.ndarray, B, Lp, n_cap, w, s, max_out, device):
+    """Upload one chunk's blob and extract its syncmers, reading n_sel
+    back and regrowing the capacity in a loop until it holds every
+    selected position: the packed route (host counting, the Python
+    reader).  Returns (packed [3, max_out+1] on ``device``, n_sel,
+    max_out)."""
     import torch
 
-    from ..kernels.syncmer import extract_hoco_fused, extract_hoco_fused_keys
+    from ..kernels.syncmer import extract_hoco_fused
 
     blob_d = torch.from_numpy(blob).to(device)
-    sids_d = None if devcount is None else torch.from_numpy(np.asarray(sids, np.int64)).to(device)
     while True:
-        if devcount is None:
-            packed = extract_hoco_fused(blob_d, B, Lp, n_cap, w, s, max_out)
-            n_sel = int(packed[0, max_out])
-        else:
-            packed = None
-            off = devcount.reserve(max_out)
-            n_sel = int(extract_hoco_fused_keys(blob_d, B, Lp, n_cap, w, s, max_out, sids_d,
-                                                 devcount.bufs, off)[0])
+        packed = extract_hoco_fused(blob_d, B, Lp, n_cap, w, s, max_out)
+        n_sel = int(packed[0, max_out])
         if n_sel <= max_out:
-            if devcount is not None:
-                devcount.commit(max_out)
             return packed, n_sel, max_out
         max_out = _round_up(n_sel + 1024, 1024)
+
+
+# pinned staging slots of the key route's uploads (tests shrink this to
+# reuse each slot several times on a small input)
+_UPLOAD_SLOTS = 4
+
+
+class Uploads:
+    """Host-to-device copies of the key route's chunks (blob and read
+    ids), queued without waiting for the card.
+
+    On a CUDA device each chunk is staged in one of ``_UPLOAD_SLOTS``
+    pinned host buffers, sized to the largest upload seen, so the pinned
+    memory is bounded whatever the input's size.  The slot's copy to the
+    card runs with ``non_blocking=True`` on a dedicated copy stream into
+    memory allocated on that stream; an event recorded there makes the
+    compute stream wait before the decode, and ``record_stream`` keeps
+    the caching allocator from handing the device blob out again before
+    the compute stream's queued kernels have read it.  :meth:`done`
+    records an event on the compute stream behind the chunk's kernels;
+    before the host rewrites a slot it waits on the event of the slot's
+    previous chunk -- the loop's only host wait -- so the host runs at
+    most ``_UPLOAD_SLOTS`` chunks ahead of the card and at most that many
+    device blobs are in flight.
+
+    Staging copies the numpy blob into the slot on the main thread
+    rather than having the parse workers pack into pinned blobs: a chunk
+    that overflowed is extracted again from its host blob after the
+    drain, so every blob outlives the segment loop, and pinned blobs
+    would then grow with the input.
+
+    On the CPU the blob and ids are used in place: no pinning, no
+    streams.  A failure to pin or to make the stream raises."""
+
+    def __init__(self, device):
+        import torch
+
+        self.device = torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        self.uploads = 0  # copies issued on the copy stream
+        self.pinned_bytes = 0  # pinned staging bytes held
+        self.wait_s = 0.0  # host seconds waiting for a slot
+        self.stage_s = 0.0  # host seconds copying into the slots
+        if self.cuda:
+            self.copy = torch.cuda.Stream(self.device)
+            self.compute = torch.cuda.current_stream(self.device)
+            self.slots = [None] * _UPLOAD_SLOTS
+            self.freed = [None] * _UPLOAD_SLOTS  # compute-stream events
+            self.next = 0
+            self.size = 0
+            self._slot = 0
+
+    def put(self, blob: np.ndarray, sids: np.ndarray):
+        """(blob, sids) as tensors on the device, ordered before the
+        compute stream's next kernels."""
+        import time
+
+        import torch
+
+        if not self.cuda:
+            return torch.from_numpy(blob), torch.from_numpy(sids)
+        nb = blob.nbytes
+        pad = _round_up(nb, 8)
+        total = pad + sids.nbytes
+        i = self.next
+        self.next = (i + 1) % len(self.slots)
+        t0 = time.perf_counter()
+        if self.freed[i] is not None:
+            self.freed[i].synchronize()
+        t1 = time.perf_counter()
+        slot = self.slots[i]
+        if slot is None or slot.numel() < total:
+            self.size = max(self.size, total)
+            slot = torch.empty(self.size, dtype=torch.uint8, pin_memory=True)
+            if not slot.is_pinned():
+                raise RuntimeError(f"could not pin {self.size} B of host memory for uploads")
+            self.slots[i] = slot
+            self.pinned_bytes = sum(t.numel() for t in self.slots if t is not None)
+        host = slot.numpy()
+        np.copyto(host[:nb], blob)
+        np.copyto(host[pad:total].view(np.int64), sids)
+        self.wait_s += t1 - t0
+        self.stage_s += time.perf_counter() - t1
+        with torch.cuda.stream(self.copy):
+            dev = torch.empty(total, dtype=torch.uint8, device=self.device)
+            dev.copy_(slot[:total], non_blocking=True)
+            ev = self.copy.record_event()
+        self.compute.wait_event(ev)
+        dev.record_stream(self.compute)
+        self.uploads += 1
+        self._slot = i
+        return dev[:nb], dev[pad:total].view(torch.int64)
+
+    def done(self):
+        """Mark the end of the kernels that read the last upload."""
+        if self.cuda:
+            self.freed[self._slot] = self.compute.record_event()
+
+
+def _grow_if_overflow(devcount, uploads, pend, n_sel: int, w: int, s: int, counters) -> int:
+    """Regrow one chunk after the drain, as the reference's
+    ``_grow_if_overflow`` (``oatk_tpu/asm/reads.py:445``): while its
+    exact n_sel exceeds its capacity, invalidate its lanes and append the
+    same host blob again at a new offset with ``max_out = n_sel + 1024``
+    rounded up (the finalize's global sort makes the append order
+    irrelevant).  Returns n_sel."""
+    blob, B, Lp, n_cap, max_out, off, sids, _n = pend
+    while n_sel > max_out:
+        devcount.invalidate(off, max_out)
+        max_out = _round_up(n_sel + 1024, 1024)
+        blob_d, sids_d = uploads.put(blob, sids)
+        off, n_d = devcount.append(blob_d, B, Lp, n_cap, w, s, max_out, sids_d)
+        uploads.done()
+        n_sel = int(n_d[0])
+        counters["regrows"] += 1
+        counters["nsel_reads"] += 1
+    return n_sel
 
 
 def extract_all_syncmers(
@@ -423,11 +525,18 @@ def load_and_extract(
     Uncapped, each file splits at record boundaries into ~``_SEG_BYTES``
     segments; worker threads parse and pack them while the main thread
     extracts the previous segment's chunks on ``device``.  With
-    ``device_count`` the keys go to a
+    ``device_count`` (the key route) the keys go to a
     :class:`~oatk_tpu_torch.index.devcount.DevCountState`, which the
-    returned ReadDB carries as ``_devcount`` for ``collect_syncmer_db``;
-    otherwise each chunk's selected rows are fetched and
-    ``collect_syncmer_db`` sorts on the host.
+    returned ReadDB carries as ``_devcount`` for ``collect_syncmer_db``,
+    and the main thread only queues work, as the reference's loader does
+    (``oatk_tpu/asm/reads.py:787-895``): per chunk the upload
+    (:class:`Uploads`), K3d -> K1 -> K4 and the append, with no host read
+    in the segment loop; after it the finalize's sorts
+    (:meth:`~oatk_tpu_torch.index.devcount.DevCountState.start_finalize`),
+    the host assembly of the reads, then ONE read of every chunk's n_sel
+    and the regrow of any chunk that overflowed
+    (:func:`_grow_if_overflow`).  Otherwise each chunk's selected rows are
+    fetched and ``collect_syncmer_db`` sorts on the host.
 
     ``max_data`` (-D) runs the sequential flow: a whole-file parse, the
     reads up to and including the one whose raw bases reach the cap,
@@ -435,9 +544,23 @@ def load_and_extract(
 
     Returns None when the native parser rejects the input (for example a
     FASTA file with embedded FASTQ records) and under
-    OATK_TPU_DEVICE_HOCO; the caller then takes the Python reader."""
+    OATK_TPU_DEVICE_HOCO; the caller then takes the Python reader.
+
+    The ReadDB carries ``load_timings`` (seconds of the main thread's
+    phases: ``extract`` is the queueing time on the key route, of which
+    ``upload_wait`` waits for a staging slot and ``upload_stage`` copies
+    into one (on a card), ``finalize_dispatch`` and ``nsel_drain`` its
+    two steps after the loop; ``parse_work``/``pack_work`` the workers'
+    sums) and
+    ``load_counters``: ``files`` (pipelined files), ``nsel_reads`` (host
+    reads of n_sel: one per file on the key route, plus one per regrow),
+    ``chunk_reads`` (chunks whose n_sel was read inside the segment loop:
+    0 on the key route), ``regrows``, ``pinned_bytes`` (the upload ring's
+    staging memory) and ``copy_uploads`` (copies on the copy stream)."""
     import time as _time
     from concurrent.futures import ThreadPoolExecutor
+
+    import torch
 
     from .. import native
     from ..index.devcount import DevCountState
@@ -449,6 +572,9 @@ def load_and_extract(
         raise RuntimeError("the native host library (oatk_tpu_torch/native/*.c) failed to build")
 
     devcount = DevCountState(device) if device_count and not max_data else None
+    uploads = Uploads(device) if devcount is not None else None
+    counters = dict(files=0, nsel_reads=0, chunk_reads=0, regrows=0, pinned_bytes=0,
+                    copy_uploads=0)
     db = ReadDB(k=w, s=s)
     total_raw = 0
     up = 0
@@ -466,20 +592,31 @@ def load_and_extract(
         _tm[key] = _tm.get(key, 0.0) + (t1 - t0)
         return t1
 
-    def extract_rows(chunks, csid0):
-        """Extract one parse unit's chunks; returns the host rows per
-        chunk (host counting) or [] (keys appended to ``devcount``)."""
+    def extract_rows(chunks):
+        """Extract one parse unit's chunks on the packed route; returns
+        the host rows per chunk."""
         nonlocal up
-        rows, n_occ = [], 0
+        rows = []
         for chunk, B, Lp, max_out, n_cap, blob in chunks:
-            sids = None if devcount is None else np.asarray(chunk, np.int64) + csid0
-            packed, n_sel, max_out = extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device,
-                                                   devcount, sids)
+            packed, n_sel, max_out = extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device)
             up += blob.nbytes
-            n_occ += n_sel
-            if devcount is None:
-                rows.append((chunk, _host_rows(packed, n_sel, B, Lp)))
-        return rows, n_occ
+            counters["chunk_reads"] += 1
+            counters["nsel_reads"] += 1
+            rows.append((chunk, _host_rows(packed, n_sel, B, Lp)))
+        return rows
+
+    def queue_keys(chunks, csid0, pending):
+        """Queue one parse unit's chunks on the key route: upload, the
+        extraction chain, the append; each chunk's (host blob, B, Lp,
+        n_cap, max_out, offset, sids, n_sel tensor) goes to ``pending``."""
+        nonlocal up
+        for chunk, B, Lp, max_out, n_cap, blob in chunks:
+            sids = np.asarray(chunk, np.int64) + csid0
+            blob_d, sids_d = uploads.put(blob, sids)
+            off, n_sel = devcount.append(blob_d, B, Lp, n_cap, w, s, max_out, sids_d)
+            uploads.done()
+            pending.append((blob, B, Lp, n_cap, max_out, off, sids, n_sel))
+            up += blob.nbytes
 
     def assemble(res, sid_base, codes, rl, keep, rows):
         """ReadSyncmers for the first ``keep`` reads of one parse unit.
@@ -518,7 +655,7 @@ def load_and_extract(
             tot += int(0.8 * sz / _sel_divisor(w, s)) + (sz // _SEG_BYTES + 2) * 1024
         devcount.cap_hint = tot
 
-    for path in paths:
+    for i_path, path in enumerate(paths):
         _t0 = _time.perf_counter()
         data = read_source_bytes(path)
         _acc("read_bytes", _t0)
@@ -534,7 +671,7 @@ def load_and_extract(
             keep = int(np.searchsorted(np.cumsum(rawlen), max_data - total_raw) + 1)
             keep = min(keep, len(names))
             total_raw += int(rawlen[:keep].sum())
-            rows, _n_occ = extract_rows(_pack_chunks(res, keep, w, s, batch_bases), sid0)
+            rows = extract_rows(_pack_chunks(res, keep, w, s, batch_bases))
             _t0 = _acc("extract", _t0)
             db.reads.extend(assemble(res, sid0, codes, rl, keep, rows))
             h_end = int(offs[keep])
@@ -570,7 +707,8 @@ def load_and_extract(
         rl_full = np.empty(len(data), np.uint8)
         failed = False
         seg_results: list = []
-        n_occ = 0
+        pending: list = []  # key route: the chunks queued, for the drain
+        counters["files"] += 1
         try:
             for attempt in (0, 1):
                 _t0 = _time.perf_counter()
@@ -592,8 +730,8 @@ def load_and_extract(
                 )
                 _t0 = _acc("cuts", _t0)
                 seg_results = []
+                pending = []
                 failed = False
-                n_occ = 0
                 # key lanes appended during a discarded attempt must be
                 # masked out of the device count buffers
                 att_fill = devcount.n_fill if devcount is not None else 0
@@ -617,14 +755,18 @@ def load_and_extract(
                             failed = True
                             continue
                         res, chunks = pr
-                        rows, n = extract_rows(chunks, seg_sid)
-                        n_occ += n
+                        if devcount is None:
+                            rows = extract_rows(chunks)
+                        else:
+                            rows = []
+                            queue_keys(chunks, seg_sid, pending)
                         _acc("extract", _t0)
                         seg_sid += len(res[0])
                         seg_results.append((res, c0, rows))
                 if guard_fut is not None and guard_fut.result() >= 0:
                     # rare mixed-format file: the optimistic '\n>' split
-                    # was unsafe; drop this attempt and redo verified
+                    # was unsafe; drop this attempt (its pending n_sel
+                    # tensors unread) and redo verified
                     if devcount is not None and devcount.n_fill > att_fill:
                         devcount.invalidate(att_fill, devcount.n_fill - att_fill)
                     continue
@@ -636,9 +778,14 @@ def load_and_extract(
             _tm["pack_work"] = _tm.get("pack_work", 0.0) + sum(q for _, q in seg_tms)
         if failed:
             return None
-        if devcount is not None:
-            devcount.n_occ += n_occ
         _t0 = _time.perf_counter()
+        if pending and i_path == len(paths) - 1:
+            # optimistic, as the reference (oatk_tpu/asm/reads.py:849-856):
+            # the sorts queue behind the chunks while the host assembles
+            # (a regrow drops them and build queues them again; a later
+            # file's appends would too, so only the last file queues them)
+            devcount.start_finalize()
+            _t0 = _acc("finalize_dispatch", _t0)
         for res, vbase, rows in seg_results:
             names, rawlen, offs = res[0], res[1], res[2]
             keep = len(names)
@@ -659,7 +806,15 @@ def load_and_extract(
         off_base += len(data)
         code_parts.append(codes_full)
         rl_parts.append(rl_full)
-        _acc("assemble_total", _t0)
+        _t0 = _acc("assemble_total", _t0)
+        if pending:
+            # ONE read of every chunk's n_sel, after the assembly; then
+            # the rare overflowed chunks regrow
+            n_sels = torch.cat([p[-1] for p in pending]).cpu().tolist()
+            counters["nsel_reads"] += 1
+            for pend, n_sel in zip(pending, n_sels):
+                devcount.n_occ += _grow_if_overflow(devcount, uploads, pend, n_sel, w, s, counters)
+            _acc("nsel_drain", _t0)
     if code_parts:
         db.hoco_flat = (
             code_parts[0] if len(code_parts) == 1 else np.concatenate(code_parts)
@@ -674,6 +829,11 @@ def load_and_extract(
     if devcount is not None and devcount.n_fill > 0:
         db._devcount = devcount  # consumed by collect_syncmer_db
     db.upload_bytes = up
+    if uploads is not None:
+        counters.update(pinned_bytes=uploads.pinned_bytes, copy_uploads=uploads.uploads)
+        if uploads.cuda:
+            _tm.update(upload_wait=uploads.wait_s, upload_stage=uploads.stage_s)
+    db.load_counters = counters
     db.load_timings = dict(_tm)
     if _timeit_enabled() and _tm:
         import sys as _sys

@@ -26,7 +26,12 @@ dtypes: uint64 hashes, smers, lows and pair keys, uint32 m32, int32 gid.
 
 The finalize uses exact-size boolean compaction where the JAX program
 sorted fixed-capacity buffers, so its outputs are the valid prefixes of
-the JAX outputs.
+the JAX outputs.  It comes in two parts: :func:`finalize_sorted` (the
+three sort passes over every lane, no host read), which the loader
+queues before it assembles the reads on the host, and
+:func:`finalize_compact` (the rest over the valid lanes, whose number
+the loader knows from its n_sel drain, with one read of three counts),
+which :meth:`DevCountState.build` runs.
 """
 from __future__ import annotations
 
@@ -64,31 +69,39 @@ def chunk_keys(packed: torch.Tensor, sids: torch.Tensor, Lp: int):
     return packed[2, :max_out], low, packed[1, :max_out], m32, vinv
 
 
-def finalize(bh, bl, bs, bm, bv):
-    """One finalize over the carry buffers (int64 bit patterns; bv int32
-    0 valid / 1 invalid).  Returns exact-size tensors
-    (gid_flat, m32_flat, rs_sid, rs_pos, hh, hs, h1, l1, s1, scalars,
-    pk_u, pcnt): the valid prefixes of the JAX finalize's outputs."""
-    dev = bh.device
-    # (invalid, hash, low) order: stable argsort passes, least
-    # significant key first, unsigned comparisons through ukey
+def finalize_sorted(bh, bl, bs, bm, bv):
+    """The finalize's sorts, queued with no host read: the lane order by
+    (invalid, hash, low) -- stable ``argsort`` passes, least significant
+    key first, unsigned comparisons through ``ukey`` -- which puts the
+    valid lanes first, and their number as a device tensor.
+    :func:`finalize_compact` takes it from there."""
     order = torch.sort(ukey(bl), stable=True).indices
     order = order[torch.sort(ukey(bh[order]), stable=True).indices]
     order = order[torch.sort(bv[order], stable=True).indices]
-    n_tot = int((bv == 0).sum())
+    return (bh, bl, bs, bm, order, (bv == 0).sum())
+
+
+def finalize_compact(part, n_tot: int | None = None):
+    """The rest of the finalize over :func:`finalize_sorted`'s result,
+    for ``n_tot`` valid lanes (read from the device when not given).
+    Returns exact-size tensors (gid_flat, m32_flat, rs_sid, rs_pos, hh,
+    hs, h1, l1, s1, scalars, pk_u, pcnt): the valid prefixes of the JAX
+    finalize's outputs; ``scalars[0]`` is the device's own count of
+    valid lanes, which the caller holds against ``n_tot``."""
+    bh, bl, bs, bm, order, n_valid = part
+    if n_tot is None:
+        n_tot = int(n_valid)
     order = order[:n_tot]
     h1, l1, s1, m1 = bh[order], bl[order], bs[order], bm[order]
+    dev = bh.device
     i = torch.arange(n_tot, dtype=torch.int64, device=dev)
 
     f = torch.ones(n_tot, dtype=torch.bool, device=dev)
     f[1:] = h1[1:] != h1[:-1]
     gid = torch.cumsum(f, 0) - 1
-    n_scm = int(f.sum())
-    if n_tot:
-        head = torch.cummax(torch.where(f, i, -1), 0).values
-        n_susp = int((s1 != s1[head]).sum())
-    else:
-        n_susp = 0
+    head = torch.cummax(torch.where(f, i, -1), 0).values
+    # one read: the device's valid count, the clusters, the collisions
+    n_dev, n_scm, n_susp = torch.stack([n_valid, f.sum(), (s1 != s1[head]).sum()]).tolist()
     hh, hs = h1[f], s1[f]
 
     # back to per-read flat order (= ascending low; lows are unique)
@@ -114,9 +127,16 @@ def finalize(bh, bl, bs, bm, bv):
     pk_u = ukey(pk_u)
 
     scalars = torch.tensor(
-        [n_tot, n_scm, n_susp, len(pk_u), len(rs_sid)], dtype=torch.int64
+        [n_dev, n_scm, n_susp, len(pk_u), len(rs_sid)], dtype=torch.int64
     )
     return (gid_flat, m32_flat, rs_sid, rs_pos, hh, hs, h1, l1, s1, scalars, pk_u, pcnt)
+
+
+def finalize(bh, bl, bs, bm, bv):
+    """One finalize over the carry buffers (int64 bit patterns; bv int32
+    0 valid / 1 invalid): :func:`finalize_sorted`, then
+    :func:`finalize_compact`."""
+    return finalize_compact(finalize_sorted(bh, bl, bs, bm, bv))
 
 
 def final_to_numpy(final):
@@ -137,13 +157,19 @@ def final_to_numpy(final):
 
 class DevCountState:
     """Device carry buffers accumulating (hash, low, smer, m32, invalid)
-    key lanes across extraction chunks; finalize builds the SyncmerDB."""
+    key lanes across extraction chunks; finalize builds the SyncmerDB.
+
+    The reference's contract (``oatk_tpu/index/devcount.py:313-347``):
+    :meth:`append` queues a chunk and commits its ``max_out`` lanes at
+    once, handing back its n_sel as a device tensor; the lanes of a chunk
+    found to have overflowed are invalidated (:meth:`invalidate`) and the
+    chunk is appended again with room, and the finalize's global sort
+    makes the append order irrelevant."""
 
     def __init__(self, device, cap_hint: int = 0):
         self.device = torch.device(device)
         self._bufs = None  # (bh, bl, bs, bm, bv) device tensors
-        self._final = None  # finalize outputs (device tensors)
-        self._host = None  # finalize outputs fetched to numpy
+        self._final = None  # finalize_sorted's result (device tensors)
         self.cap = 0
         self.cap_hint = cap_hint  # expected total lanes (avoids growth)
         self.n_fill = 0  # append offset
@@ -181,6 +207,10 @@ class DevCountState:
                 torch.ones(self.cap, dtype=torch.int32, device=dev),
             )
         if self.n_fill + need > self.cap:
+            # the copy runs on the compute stream, behind every kernel
+            # already queued against the old buffers, so those need only
+            # stay referenced until queued: the caching allocator hands
+            # their memory out again in the same stream order
             new_cap = max(2 * self.cap, self.n_fill + need)
             grown = []
             for buf, fill in zip(self._bufs, (-1, -1, -1, 0, 1)):
@@ -193,30 +223,32 @@ class DevCountState:
 
     def _drop_final(self):
         self._final = None
-        self._host = None
 
     @property
     def bufs(self):
         """The carry buffers (hash, low, smer, m32, invalid)."""
         return self._bufs
 
-    def reserve(self, max_out: int) -> int:
-        """Room for one chunk's max_out key lanes at the append offset,
-        which is returned; the lanes count once :meth:`commit` is called
-        (a chunk that overflowed reserves again with its larger max_out
-        and rewrites the same lanes)."""
+    def append(self, blob, B: int, Lp: int, n_cap: int, w: int, s: int, max_out: int,
+               sids) -> tuple[int, torch.Tensor]:
+        """Queue one chunk on the key route (K3d -> K1 -> K4 over the
+        uploaded ``blob``, row b's read id ``sids[b]``), its key lanes
+        written at the append offset, and commit its ``max_out`` lanes.
+        Returns (the chunk's offset, its exact n_sel as a one-element
+        device tensor); nothing is read back."""
+        from ..kernels.syncmer import extract_hoco_fused_keys
+
         self._drop_final()
         self._ensure(max_out)
-        return self.n_fill
-
-    def commit(self, max_out: int):
-        """Take the reserved chunk's max_out lanes into the count."""
-        self.n_fill += max_out
+        off = self.n_fill
+        n_sel = extract_hoco_fused_keys(blob, B, Lp, n_cap, w, s, max_out, sids, self._bufs, off)
+        self.n_fill = off + max_out
         self.n_append += 1
+        return off, n_sel
 
     def invalidate(self, off: int, n: int):
-        """Mark previously appended lanes invalid (a discarded parse
-        attempt)."""
+        """Mark previously appended lanes invalid (an overflowed chunk
+        before its regrow, or a discarded parse attempt)."""
         if self._bufs is None:
             return
         self._drop_final()
@@ -224,16 +256,11 @@ class DevCountState:
         self.n_invalidate += 1
 
     def start_finalize(self):
-        """Run the finalize over the current buffers (dropped again by a
-        later append/invalidate)."""
+        """Queue the finalize's sorts over the current buffers
+        (:func:`finalize_sorted`, no host read); a later append or
+        invalidate drops the result and :meth:`build` queues it again."""
         if self._bufs is not None and self._final is None:
-            self._final = finalize(*(b[: self.n_fill] for b in self._bufs))
-
-    def prefetch(self, n_reads: int):
-        """Copy the finalize outputs to the host ahead of build()."""
-        self.start_finalize()
-        if self._final is not None and self._host is None:
-            self._host = final_to_numpy(self._final)
+            self._final = finalize_sorted(*(b[: self.n_fill] for b in self._bufs))
 
     def build(self, read_db):
         """Finalize, fetch, restore the per-read views, and build the
@@ -241,11 +268,11 @@ class DevCountState:
         collected."""
         from .syncmer_db import build_db_from_sorted
 
-        if self._bufs is None and self._final is None:
+        if self._bufs is None:
             return None
-        self.prefetch(len(read_db.reads))
+        self.start_finalize()
         (gid_flat, m32_f, rs_sid, rs_pos, hh, hs, sh, sl, ss,
-         scalars, pk_u, pcnt) = self._host
+         scalars, pk_u, pcnt) = final_to_numpy(finalize_compact(self._final, self.n_occ))
         self._drop_final()
         self._bufs = None
 

@@ -1,7 +1,8 @@
 """The key route of oatk_tpu_torch: K4 writing the device count's five key
 lanes itself (kernels/syncmer_details.py:selected_keys,
-kernels/syncmer.py:extract_hoco_fused_keys, asm/reads.py:extract_chunk
-with a DevCountState's reserve and commit).
+kernels/syncmer.py:extract_hoco_fused_keys, DevCountState.append as the
+loader queues it through asm/reads.py:Uploads, and the loader's regrow
+after the drain, asm/reads.py:_grow_if_overflow).
 
 - The plain key route against the JAX package's per-chunk key decode
   (oatk_tpu/index/devcount.py keys_jit + write_jit, on the CPU with the
@@ -11,9 +12,10 @@ with a DevCountState's reserve and commit).
 - The key route against index/devcount.py:chunk_keys of the packed
   route: exact on every lane, those past n_sel included, and nothing
   written outside the chunk's lanes.
-- An overflow retried through extract_chunk (reserve, regrow, rewrite)
-  and an invalidated chunk: the finalize equals the one over buffers that
-  the packed route plus chunk_keys fills, exactly.
+- An overflow regrown after the drain (lanes invalidated, the chunk
+  appended again at a new offset) and an invalidated chunk: the finalize
+  equals the one over buffers that the packed route plus chunk_keys
+  fills, exactly.
 - ``cuda``-marked cases that hold the kernel against the plain version on
   a card (skipped without one)."""
 import numpy as np
@@ -109,28 +111,53 @@ def test_keys_match_chunk_keys(max_out):
 
 def _state_by_packed_route(chunks, w, s):
     """Count buffers filled as the loader filled them before the key route:
-    the packed result of each chunk decoded by chunk_keys.  Returns the
-    state and each chunk's (offset, lanes)."""
-    st, spans = DC.DevCountState("cpu"), []
+    the packed result of each chunk (regrown in place) decoded by
+    chunk_keys, one chunk after another.  Returns the state and each
+    chunk's (offset, lanes)."""
+    lanes, spans, n_occ = [], [], 0
     for blob, B, Lp, n_cap, max_out, sids in chunks:
         packed, n_sel, max_out = R.extract_chunk(blob, B, Lp, n_cap, w, s, max_out, "cpu")
-        off = st.reserve(max_out)
-        for buf, k in zip(st.bufs, DC.chunk_keys(packed, torch.from_numpy(sids), Lp)):
-            buf[off:off + max_out] = k
-        st.commit(max_out)
-        st.n_occ += n_sel
-        spans.append((off, max_out))
+        lanes.append(DC.chunk_keys(packed, torch.from_numpy(sids), Lp))
+        spans.append((sum(n for _, n in spans), max_out))
+        n_occ += n_sel
+    cols = [torch.cat(c).numpy() for c in zip(*lanes)]
+    st = DC.DevCountState.from_numpy(*(c.view(np.uint64) for c in cols[:3]), *cols[3:])
+    assert st.n_occ == n_occ
     return st, spans
+
+
+class _LoggedState(DC.DevCountState):
+    """A DevCountState that logs each append's (offset, lanes)."""
+
+    def __init__(self, device):
+        super().__init__(device)
+        self.log = []
+
+    def append(self, *a):
+        off, n_sel = super().append(*a)
+        self.log.append((off, a[6]))
+        return off, n_sel
 
 
 def _state_by_key_route(chunks, w, s, device="cpu"):
-    st, spans = DC.DevCountState(device), []
+    """The loader's key route: every chunk queued (upload, extraction,
+    append) with no read, then one read of every n_sel and the regrow of
+    the chunks that overflowed.  Returns the state, each chunk's final
+    (offset, lanes) and the loader's counters."""
+    st, up, pending = _LoggedState(device), R.Uploads(device), []
     for blob, B, Lp, n_cap, max_out, sids in chunks:
-        off = st.n_fill
-        _, n_sel, max_out = R.extract_chunk(blob, B, Lp, n_cap, w, s, max_out, device, st, sids)
-        st.n_occ += n_sel
-        spans.append((off, max_out))
-    return st, spans
+        blob_d, sids_d = up.put(blob, sids)
+        off, n_d = st.append(blob_d, B, Lp, n_cap, w, s, max_out, sids_d)
+        up.done()
+        pending.append((blob, B, Lp, n_cap, max_out, off, sids, n_d))
+    counters = dict(regrows=0, nsel_reads=1)
+    spans = list(st.log)
+    for i, (pend, n_sel) in enumerate(zip(pending, torch.cat([p[-1] for p in pending]).cpu().tolist())):
+        n_log = len(st.log)
+        st.n_occ += R._grow_if_overflow(st, up, pend, n_sel, w, s, counters)
+        if len(st.log) > n_log:  # regrown: its last append holds its lanes
+            spans[i] = st.log[-1]
+    return st, spans, counters
 
 
 def _chunks(seed, w):
@@ -145,8 +172,10 @@ def _chunks(seed, w):
 
 def test_overflow_retry_rewrites_the_same_lanes(monkeypatch):
     """A chunk that overflows twice (the first regrow clamped too small)
-    reserves again, rewrites its lanes at the same offset and commits
-    once; the buffers equal the packed route's decode lane for lane."""
+    has its lanes invalidated and is appended again at the end of the
+    buffers each time, after the one drain; its last lanes equal the
+    packed route's decode lane for lane, every other chunk's lanes stay
+    where they were queued, and the finalize equals the packed route's."""
     w, s = 15, 5
     chunks = _chunks(5, w)
     ref, ref_spans = _state_by_packed_route(chunks, w, s)
@@ -169,11 +198,21 @@ def test_overflow_retry_rewrites_the_same_lanes(monkeypatch):
 
     monkeypatch.setattr(R, "_round_up", clamped)
     monkeypatch.setattr(K, "extract_hoco_fused_keys", counting)
-    st, spans = _state_by_key_route(chunks, w, s)
-    assert len(calls) == 5 and calls[1:3] == [64, 128] and calls[3] > 128  # two overflows
-    assert spans == ref_spans and st.n_append == ref.n_append == 3 and st.n_fill == ref.n_fill
-    for a, b in zip(st.bufs, ref.bufs):
-        assert torch.equal(a[:st.n_fill], b[:ref.n_fill])
+    st, spans, counters = _state_by_key_route(chunks, w, s)
+    # three chunks queued, then the second regrown twice (64 -> 128 -> room)
+    assert calls[:3] == [2048, 64, 4096] and calls[3] == 128 and calls[4] > 128 and len(calls) == 5
+    assert counters == dict(regrows=2, nsel_reads=3)
+    assert st.n_append == 5 and st.n_invalidate == 2 and st.n_occ == ref.n_occ
+    assert [n for _, n in spans] == [n for _, n in ref_spans]
+    assert spans[1][0] == 2048 + 64 + 4096 + 128  # behind both abandoned attempts
+    inv = st.bufs[4]
+    assert (inv[2048:2048 + 64] == 1).all() and (inv[6208:6208 + 128] == 1).all()
+    for (o, n), (ro, rn) in zip(spans, ref_spans):
+        for a, b in zip(st.bufs, ref.bufs):
+            assert torch.equal(a[o:o + n], b[ro:ro + rn])
+    for a, b in zip(DC.finalize(*(b[:st.n_fill] for b in st.bufs)),
+                    DC.finalize(*(b[:ref.n_fill] for b in ref.bufs))):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("drop", [None, 1])
@@ -183,12 +222,12 @@ def test_finalize_equals_packed_route(drop):
     discarded parse attempt)."""
     w, s = 51, 11
     chunks = _chunks(9, w)
-    (a, spans_a), (b, spans_b) = _state_by_packed_route(chunks, w, s), _state_by_key_route(chunks, w, s)
-    assert spans_a == spans_b
+    (a, spans_a), (b, spans_b, _c) = _state_by_packed_route(chunks, w, s), _state_by_key_route(chunks, w, s)
+    assert [n for _, n in spans_a] == [n for _, n in spans_b]
     states = [a, b]
     if drop is not None:
-        for st in states:
-            st.invalidate(*spans_a[drop])
+        for st, spans in zip(states, (spans_a, spans_b)):
+            st.invalidate(*spans[drop])
     finals = [DC.finalize(*(b[:st.n_fill] for b in st.bufs)) for st in states]
     assert int(finals[0][9][0]) > 0
     for a, b in zip(*finals):
@@ -259,13 +298,15 @@ def test_cuda_keys_match_plain(w, s, B, Lp):
 
 @pytest.mark.cuda
 def test_cuda_extract_chunk_key_route():
-    """The loader's key route on the card (an overflow regrown) equals
-    its run on the CPU, buffer for buffer."""
+    """The loader's key route on the card (pinned uploads on the copy
+    stream, an overflow regrown) equals its run on the CPU, buffer for
+    buffer."""
     _card()
     w, s = 15, 5
     chunks = _chunks(21, w)
-    cpu, spans = _state_by_key_route(chunks, w, s)
-    card, card_spans = _state_by_key_route(chunks, w, s, device="cuda")
+    cpu, spans, cc = _state_by_key_route(chunks, w, s)
+    card, card_spans, kc = _state_by_key_route(chunks, w, s, device="cuda")
+    assert cc["regrows"] > 0 and kc == cc
     assert card_spans == spans and card.n_fill == cpu.n_fill and card.n_occ == cpu.n_occ
     for a, b in zip(card.bufs, cpu.bufs):
         assert torch.equal(a[:card.n_fill].cpu(), b[:cpu.n_fill])

@@ -20,8 +20,11 @@ the same for each kernel of the decode and details named by the
 ``chip_smoke.py`` beside this file, the number of device events, their
 summed time and their number per chunk, the sha256 of
 ``.utg.final.gfa``), then W runs
-without it, each with its wall time, stage split and the load stage's
-own split (``load.*``: file read, parse wait, extraction, assembly).
+without it, each with its wall time, stage split, the load stage's
+own split (``load.*``: file read, parse wait, extraction, assembly) and
+peak device memory; the loader's counters (``load_counters``: n_sel
+reads, regrows, pinned staging bytes, copy-stream uploads) once, where
+the package has them.
 """
 from __future__ import annotations
 
@@ -68,6 +71,7 @@ def main() -> int:
     os.makedirs(os.path.dirname(out), exist_ok=True)
 
     def run():
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = syncasm([fa], k=1001, s=31, min_k_cov=30, do_ec=True, do_unzip=3, out=out, device="cuda")
         torch.cuda.synchronize()
@@ -76,6 +80,8 @@ def main() -> int:
         tm.update({f"load.{k}": v for k, v in (getattr(res.read_db, "load_timings", None) or {}).items()})
         # chunks counted on the device (none in a checkout whose count keeps no stats)
         tm["chunks"] = getattr(getattr(res.read_db, "_devcount_stats", None), "n_append", 0)
+        tm["peak"] = torch.cuda.max_memory_allocated()
+        tm["counters"] = getattr(res.read_db, "load_counters", None)
         return time.perf_counter() - t0, tm
 
     print(f"[k1prof] {smoke.card_line()}; package from {tag}; warm-up run {run()[0]:.3f} s", flush=True)
@@ -98,8 +104,12 @@ def main() -> int:
               f".utg.final.gfa sha256 {sha[:16]}", flush=True)
     for i in range(args.walls):
         wall, tm = run()
-        stages = " ".join(f"{k}={v * 1000:.1f}ms" for k, v in tm.items() if k != "chunks")
-        print(f"[k1prof] {tag} wall {wall:.4f} s; {stages}", flush=True)
+        stages = " ".join(f"{k}={v * 1000:.1f}ms" for k, v in tm.items()
+                          if k not in ("chunks", "peak", "counters"))
+        print(f"[k1prof] {tag} wall {wall:.4f} s; {stages}; max_memory_allocated={tm['peak']} B",
+              flush=True)
+        if i == 0:
+            print(f"[k1prof] {tag} loader counters: {tm['counters']}", flush=True)
     return 0
 
 
