@@ -10,7 +10,8 @@ Phases (any failure makes the exit code non-zero):
 1. the card's name and power limit, and the torch / CUDA versions;
 2. build the CUDA sources (``oatk_tpu_torch/csrc/syncmer_select.cu``,
    ``oatk_tpu_torch/csrc/wf_ed.cu``, ``oatk_tpu_torch/csrc/syncmer_details.cu``)
-   from the checkout, one nvcc each, started together, with the
+   from the checkout, one nvcc each, and EC's C lockstep driver
+   (``oatk_tpu_torch/csrc/ec_lockstep.c``, cc), started together, with the
    compiler's register, shared-memory and spill report;
 3. the selection kernel against its plain PyTorch version, both on the
    card, exactly: one main-path chunk at k=1001/s=31 (2048 rows x 16384
@@ -59,15 +60,21 @@ Phases (any failure makes the exit code non-zero):
 7. ``oatk`` (syncasm -> annotation -> pathfinder) through its CLI at its
    defaults on the same 110 Mbp set, with a stub nhmmscan written into
    the work directory: on the card with OATK_TPU_WF_BACKEND=device (EC's
-   DFS of every read in lockstep, one wavefront launch per round), with
-   ``--device cpu`` and the default backend, on the card with
-   ``EC_INFLIGHT = 1`` (one launch per DFS extension), and in lockstep
-   again.  Every output file byte-identical to the CPU run's,
-   ``.utg.final.gfa`` equal to phase 6's, both kernels launched, every EC
-   extension a launched item (no call left the kernel), one launch per
-   round, in lockstep fewer than one launch per 20 extensions and an
-   ``ec`` stage below the one-read run's; wall time, stage split, rounds,
-   items per launch, annotation and pathfinder time, peak device memory;
+   DFS of every read in lockstep, driven from C by ``csrc/ec_lockstep.c``,
+   one wavefront launch per round), with ``--device cpu`` and the default
+   backend, on the card with ``EC_INFLIGHT = 1`` (one launch per DFS
+   extension), in lockstep again, and in lockstep with the DFS in Python
+   (the native library hidden while EC runs).  Every output file
+   byte-identical to the CPU run's, ``.utg.final.gfa`` equal to phase 6's,
+   each card run on its EC route and no other, both kernels launched,
+   every EC extension a launched item (no call left the kernel), one
+   launch per round, in lockstep fewer than one launch per 20 extensions
+   and an ``ec`` stage below the one-read run's, the Python DFS's rounds,
+   items and extensions the C driver's; wall time, stage split, the
+   ``ec`` stage's split (the C driver's layout, pack and unpack on the
+   host, the round trip, and upload, kernel and read-back by CUDA events;
+   bytes each way, pinned bytes, the card's idle share), rounds, items
+   per launch, annotation and pathfinder time, peak device memory;
 8. ``syncasm -D 55M`` through its CLI at 110 Mbp (the capped sequential
    loader, host counting) on the card and with ``--device cpu``: GFAs
    byte-identical, the data-limit line printed, fewer reads than phase 6,
@@ -1435,22 +1442,54 @@ def ec_stage_ms(stages: str) -> float:
     return float(stages.split(" ec=")[1].split("ms")[0]) if " ec=" in stages else float("nan")
 
 
+def ec_split_line(label: str, r: dict) -> str:
+    """The ``ec`` stage of a C-driver run, split: the C driver's layout and
+    pack (host), the round trip (upload, launch, read-back, synchronise;
+    host clock) with its CUDA-event parts where they were recorded, the
+    unpack, the rest of the stage; rounds, items, bytes, the card's idle
+    share of the stage."""
+    s = r["split"]
+    items = sorted(s["items"])
+    busy = s["upload_ms"] + s["kernel_ms"] + s["readback_ms"]
+    host = {k: s[f"{k}_s"] * 1000 for k in ("layout", "pack", "trip", "unpack")}
+    rest = r["ec_ms"] - r["driver_ms"]
+    line = (f"[oatk] {label} ec split: {r['ec_ms']} ms = C driver {r['driver_ms']:.3f} ms (layout "
+            f"{host['layout']:.3f} + pack {host['pack']:.3f} + round trip {host['trip']:.3f} + unpack "
+            f"{host['unpack']:.3f} ms over {s['rounds']} rounds, "
+            f"{(host['layout'] + host['pack'] + host['unpack']) * 1000 / max(1, s['rounds']):.1f} us "
+            f"of host work per round; the EC inputs, finish and splice the rest) + "
+            f"{rest:.3f} ms outside it (error syncmers, coverage rebuild); items {sum(items)}, per "
+            f"round median {items[len(items) // 2] if items else 0} max {items[-1] if items else 0}; "
+            f"uploaded {s['in_bytes']} B, read back {s['out_bytes']} B; global-route items "
+            f"{s['n_global']}; pinned {r['pinned']} B")
+    if busy:
+        line += (f"; CUDA events: upload {s['upload_ms']:.3f} ms, kernel {s['kernel_ms']:.3f} ms, "
+                 f"read-back {s['readback_ms']:.3f} ms: the card idles at least "
+                 f"{100 * (1 - busy / r['ec_ms']):.2f}% of the stage")
+    return line
+
+
 def phase_oatk(work: str, fa: str, n_bp: int, syncasm_sha: str, card="cuda") -> dict:
     """This slice's main path: ``oatk`` on the 110 Mbp set, on the card
-    with EC's wavefront kernel (OATK_TPU_WF_BACKEND=device, every read's
-    DFS in lockstep), then with ``--device cpu`` and the default backend
-    (native batch EC), then on the card with ``EC_INFLIGHT = 1`` (one
-    launch per DFS extension), then in lockstep again.  Every output file
-    byte-identical to the CPU run's, ``.utg.final.gfa`` the syncasm
-    phase's, every EC extension a launched item, one launch per round,
-    in lockstep fewer launches than one per 20 extensions and an ``ec``
-    stage below the one-read run's."""
+    with EC's wavefront kernel (OATK_TPU_WF_BACKEND=device: every read's
+    DFS in lockstep, driven from C by ``csrc/ec_lockstep.c``), then with
+    ``--device cpu`` and the default backend (native batch EC), then on
+    the card with ``EC_INFLIGHT = 1`` (one launch per DFS extension),
+    then in lockstep again, then with the DFS in Python (the native
+    library hidden while EC runs: the route of a host without it).  Every
+    output file byte-identical to the CPU run's, ``.utg.final.gfa`` the
+    syncasm phase's, each card run on its route (the C driver, or the
+    Python lockstep) and on no other, every EC extension a launched item,
+    one launch per round, in lockstep fewer launches than one per 20
+    extensions and an ``ec`` stage below the one-read run's, the Python
+    lockstep's rounds, items and extensions the C driver's.  The ``ec``
+    stage's split is printed for each C-driver run."""
     import glob
 
     import torch
 
+    from oatk_tpu_torch import native
     from oatk_tpu_torch.asm import ec as EC
-    from oatk_tpu_torch.asm.ec import read_error_correction
     from oatk_tpu_torch.kernels import wf_ed as WE
     from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
@@ -1461,18 +1500,20 @@ def phase_oatk(work: str, fa: str, n_bp: int, syncasm_sha: str, card="cuda") -> 
     db = os.path.join(work, "fake.hmm")
     with open(db, "w") as f:
         f.write("dummy\n")
-    real_ragged, real_rounds = WE.wf_ed_core_ragged, WE.wf_ed_core_rounds
+    real = dict(ragged=WE.wf_ed_core_ragged, rounds=WE.wf_ed_core_rounds, ec=EC.read_error_correction,
+                c=EC._correct_reads_lockstep_native, python=EC._correct_reads_lockstep)
     per_launch: list[int] = []
     events: list = []  # a CUDA event pair around each launch: its device time
-    in_rounds = [0.0]  # host seconds inside wf_ed_core_rounds
+    in_rounds = [0.0]  # host seconds inside wf_ed_core_rounds (the Python DFS's rounds)
+    routes: dict = {}  # EC route -> [calls, host seconds]
 
     def recording(inp, out, B, *a):
         per_launch.append(B)
         if not inp.is_cuda:
-            return real_ragged(inp, out, B, *a)
+            return real["ragged"](inp, out, B, *a)
         ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
         ev[0].record()
-        res = real_ragged(inp, out, B, *a)
+        res = real["ragged"](inp, out, B, *a)
         ev[1].record()
         events.append(ev)
         return res
@@ -1480,17 +1521,38 @@ def phase_oatk(work: str, fa: str, n_bp: int, syncasm_sha: str, card="cuda") -> 
     def timed_rounds(states, device=None):
         t0 = time.perf_counter()
         try:
-            return real_rounds(states, device)
+            return real["rounds"](states, device)
         finally:
             in_rounds[0] += time.perf_counter() - t0
 
-    # while it stands in for it, the real function counts its rounds
-    # under its own name, that is, on the wrapper
+    def route(name):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return real[name](*a, **kw)
+            finally:
+                routes.setdefault(name, [0, 0.0])
+                routes[name][0] += 1
+                routes[name][1] += time.perf_counter() - t0
+        return run
+
+    def python_dfs(*a, **kw):
+        """EC with the native library hidden: the device backend's DFS in Python."""
+        saved = native.available
+        native.available = lambda: False
+        try:
+            return real["ec"](*a, **kw)
+        finally:
+            native.available = saved
+
+    # while they stand in for them, the real functions count their rounds
+    # and extensions under their own names, that is, on the stand-ins
 
     outs, runs = {}, {}
-    plan = (("card", card, "device", None), ("cpu", "cpu", "auto", None),
-            ("card_one", card, "device", 1), ("card_again", card, "device", None))
-    for label, device, backend, inflight in plan:
+    plan = (("card", card, "device", None, "c"), ("cpu", "cpu", "auto", None, None),
+            ("card_one", card, "device", 1, "c"), ("card_again", card, "device", None, "c"),
+            ("card_python", card, "device", None, "python"))
+    for label, device, backend, inflight, dfs in plan:
         d = os.path.join(work, f"oatk_{label}")
         os.makedirs(d, exist_ok=True)
         for old in glob.glob(os.path.join(d, "o.asm.*")):
@@ -1501,47 +1563,69 @@ def phase_oatk(work: str, fa: str, n_bp: int, syncasm_sha: str, card="cuda") -> 
             torch.cuda.reset_peak_memory_stats()
         syncmer_select.launches = 0
         WE.wf_ed_core_batch.launches = WE.wf_ed_core_batch.items = 0
+        WE.wf_ed_lockstep.last = None
+        # events only where the rounds are few: they would add to the
+        # one-read run's 25k rounds
+        WE.wf_ed_lockstep.events = inflight is None
+        ec_fn = python_dfs if dfs == "python" else real["ec"]
         timed_rounds.rounds = 0
-        read_error_correction.wf_calls = 0
+        ec_fn.wf_calls = 0
         per_launch.clear()
         events.clear()
+        routes.clear()
         in_rounds[0] = 0.0
         saved = EC.EC_INFLIGHT
         EC.EC_INFLIGHT, WE.wf_ed_core_ragged, WE.wf_ed_core_rounds = inflight, recording, timed_rounds
+        EC.read_error_correction = ec_fn
+        EC._correct_reads_lockstep_native, EC._correct_reads_lockstep = route("c"), route("python")
         try:
             r = run_oatk(fa, out, device, backend, exe, db)
+            wf_calls = ec_fn.wf_calls
         finally:
-            EC.EC_INFLIGHT, WE.wf_ed_core_ragged, WE.wf_ed_core_rounds = saved, real_ragged, real_rounds
+            EC.EC_INFLIGHT, WE.wf_ed_core_ragged, WE.wf_ed_core_rounds = saved, real["ragged"], real["rounds"]
+            EC.read_error_correction = real["ec"]
+            EC._correct_reads_lockstep_native, EC._correct_reads_lockstep = real["c"], real["python"]
+            WE.wf_ed_lockstep.events = False
+        buf = WE._bufs.get(torch.device("cuda", torch.cuda.current_device())) if on_card else None
         r.update(select=syncmer_select.launches, wf=WE.wf_ed_core_batch.launches,
                  items=WE.wf_ed_core_batch.items, rounds=timed_rounds.rounds,
-                 wf_calls=read_error_correction.wf_calls, per_launch=sorted(per_launch),
+                 wf_calls=wf_calls, per_launch=sorted(per_launch),
                  peak=torch.cuda.max_memory_allocated() if on_card else 0,
                  ec_ms=ec_stage_ms(r["stages"]), rounds_ms=in_rounds[0] * 1000,
-                 kernel_ms=sum(a.elapsed_time(b) for a, b in events))
+                 kernel_ms=sum(a.elapsed_time(b) for a, b in events),
+                 routes={k: v[0] for k, v in routes.items()},
+                 driver_ms=routes.get("c", [0, 0.0])[1] * 1000, split=WE.wf_ed_lockstep.last,
+                 pinned=sum(4 * t.numel() for t in (buf.h_in, buf.h_out) if t is not None) if buf else 0)
         runs[label], outs[label] = r, out
         sp = " ".join(f"{k}={v:.3f}s" for k, v in r["spent"].items())
         log(f"[oatk] {label} run, --device {device} OATK_TPU_WF_BACKEND={backend} "
-            f"EC_INFLIGHT={inflight}: rc={r['rc']} wall {r['wall']:.3f} s "
+            f"EC_INFLIGHT={inflight} DFS={dfs}: rc={r['rc']} wall {r['wall']:.3f} s "
             f"({n_bp / 1e6 / r['wall']:.3f} Mbp/s); {sp}")
         log(f"[oatk] {label} run {r['stages']}")
         log(f"[oatk] {label} run ec stage {r['ec_ms']} ms; EC: " + "; ".join(r["ec"][1:5]))
         if on_card:
             pl = r["per_launch"]
-            log(f"[oatk] {label} run: syncmer_select launches={r['select']} wf_ed launches={r['wf']} "
-                f"rounds={r['rounds']} items={r['items']} EC wf_ed_core calls={r['wf_calls']}; items "
-                f"per launch median {pl[len(pl) // 2] if pl else 0} max {pl[-1] if pl else 0}; "
-                f"max_memory_allocated={r['peak']} B")
-            log(f"[oatk] {label} run: of the ec stage's {r['ec_ms']} ms, {r['rounds_ms']:.1f} ms (host "
-                f"clock) inside wf_ed_core_rounds (pack, upload, launch, wait, read-back, unpack), "
-                f"the kernels' device time at most {r['kernel_ms']:.3f} ms (CUDA events around "
-                f"each launch, which also hold the host's launch work while the card waits): the "
-                f"card idles at least {100 * (1 - r['kernel_ms'] / r['ec_ms']):.2f}% of the stage")
+            log(f"[oatk] {label} run: EC routes {r['routes']}; syncmer_select launches={r['select']} "
+                f"wf_ed launches={r['wf']} rounds={r['rounds']} items={r['items']} EC extensions="
+                f"{r['wf_calls']}; items per launch median {pl[len(pl) // 2] if pl else 0} max "
+                f"{pl[-1] if pl else 0}; max_memory_allocated={r['peak']} B")
+            log(f"[oatk] {label} run: the kernels' device time at most {r['kernel_ms']:.3f} ms (CUDA "
+                f"events around each launch, which also hold the host's launch work while the card "
+                f"waits): the card idles at least {100 * (1 - r['kernel_ms'] / r['ec_ms']):.2f}% of "
+                f"the stage")
+        if dfs == "c" and r["split"] is not None:
+            log(ec_split_line(label, r))
+        elif dfs == "python":
+            log(f"[oatk] {label} run: of the ec stage's {r['ec_ms']} ms, {r['rounds_ms']:.1f} ms "
+                f"(host clock) inside wf_ed_core_rounds (pack, upload, launch, wait, read-back, "
+                f"unpack), the rest the Python DFS, error syncmers and coverage rebuild")
 
     names = {lb: sorted(os.path.basename(p)[len("o.asm"):] for p in glob.glob(outs[lb] + ".*"))
              for lb in outs}
     ok = all(r["rc"] == 0 for r in runs.values())
     ok &= all(s in names["cpu"] for s in OATK_SUFFIXES)
-    for lb in ("card", "card_one", "card_again"):
+    card_runs = ("card", "card_one", "card_again", "card_python")
+    for lb in card_runs:
         ok &= names[lb] == names["cpu"]
         for suf in names["cpu"]:
             a = gfa_summary(outs[lb] + suf)
@@ -1554,14 +1638,23 @@ def phase_oatk(work: str, fa: str, n_bp: int, syncasm_sha: str, card="cuda") -> 
     same_final = final == syncasm_sha
     log(f"[oatk] .utg.final.gfa equals the syncasm phase's: {same_final}")
     ok &= same_final
-    c, one, again = runs["card"], runs["card_one"], runs["card_again"]
-    for r in (c, one, again):
+    c, one, again, py = (runs[lb] for lb in card_runs)
+    on_route = all(runs[lb]["routes"] == {"c": 1} for lb in card_runs[:3]) and py["routes"] == {"python": 1}
+    log(f"[oatk] every card run on its EC route (C driver x3, Python lockstep x1): {on_route}")
+    ok &= on_route
+    for r in (c, one, again, py):
         ok &= r["select"] > 0 and r["wf"] > 0 and r["items"] == r["wf_calls"] and r["wf"] == r["rounds"]
     ok &= c["wf"] * 20 < c["wf_calls"] and again["wf"] * 20 < again["wf_calls"]
     ok &= one["wf"] == one["wf_calls"] == c["wf_calls"]
+    same_rounds = (py["rounds"], py["items"], py["wf_calls"]) == (c["rounds"], c["items"], c["wf_calls"])
+    log(f"[oatk] Python lockstep: {py['rounds']} rounds, {py['items']} items, {py['wf_calls']} "
+        f"extensions; the C driver's {c['rounds']}, {c['items']}, {c['wf_calls']}: same={same_rounds}")
+    ok &= same_rounds
     faster = max(c["ec_ms"], again["ec_ms"]) < one["ec_ms"]
-    log(f"[oatk] ec stage: lockstep {c['ec_ms']} / {again['ec_ms']} ms, EC_INFLIGHT=1 "
-        f"{one['ec_ms']} ms; lockstep below: {faster}")
+    log(f"[oatk] ec stage: C driver in lockstep {c['ec_ms']} / {again['ec_ms']} ms, EC_INFLIGHT=1 "
+        f"{one['ec_ms']} ms, Python lockstep {py['ec_ms']} ms, native batch (CPU run) "
+        f"{runs['cpu']['ec_ms']} ms; lockstep below the one-read run: {faster}; oatk wall C driver "
+        f"{c['wall']:.3f} / {again['wall']:.3f} s, Python lockstep {py['wall']:.3f} s")
     ok &= faster
     return dict(ok=ok, launches=c["wf"], rounds=c["rounds"], items=c["items"], select=c["select"])
 
@@ -2108,6 +2201,7 @@ def main() -> int:
     try:
         import genome_sim  # noqa: F401  (dataset generator)
 
+        from oatk_tpu_torch.asm import ec_lockstep as ECL
         from oatk_tpu_torch.kernels import syncmer_details as SD
         from oatk_tpu_torch.kernels import syncmer_select as SS
         from oatk_tpu_torch.kernels import wf_ed as WE
@@ -2123,7 +2217,8 @@ def main() -> int:
     os.makedirs(WORK, exist_ok=True)
     ok = True
 
-    build_kernels({"syncmer_select.cu": SS, "wf_ed.cu": WE, "syncmer_details.cu": SD})
+    build_kernels({"syncmer_select.cu": SS, "wf_ed.cu": WE, "syncmer_details.cu": SD,
+                   "ec_lockstep.c": ECL})
 
     kern = phase_kernel("cuda")
     ok &= kern["ok"]

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import os
 import sys
+from typing import NamedTuple
 
 import numpy as np
 
@@ -319,33 +320,22 @@ def _kmer_size(scg) -> int:
     return scg._kmer_size
 
 
-def _correct_reads_native(
-    read_db: ReadDB, scg: Scg, max_edist: float, stats: np.ndarray,
-    ranges: list[tuple[int, int]] | None = None, gather=None,
-) -> bool:
-    """Run the batched C corrector (native/ec.c); returns False when
-    unavailable so the caller uses the Python loop.
+class _EcInputs(NamedTuple):
+    """The native correctors' inputs: the graph arrays (``graph``, in
+    ``native.ec_correct_reads``'s order), the lazy vertex consensus
+    (``lazy``, keyword arguments), and the reads' flats and offsets."""
 
-    ranges: contiguous read ranges to correct here (data parallelism
-    over processes, reference syncerr.c:882); ``gather`` turns the local
-    parts into the full part list in read order (the cross-process
-    allgather).  Per-read corrections are independent (the graph is
-    read-only during EC), so the merged splice is bit-identical to an
-    unsharded run."""
-    from .. import native
+    graph: tuple
+    lazy: dict
+    kflat: np.ndarray
+    mflat: np.ndarray
+    moff: np.ndarray
+    code_flat: np.ndarray
+    hoff: np.ndarray
+    hoco_l: np.ndarray
 
-    # an explicit wavefront backend (device / numpy) must actually drive
-    # EC: route through the Python loop + wf_ed_core
-    cap = _wf.WF_BACKEND == "auto" and native.available()
-    if gather is not None:
-        # cross-process: agree on capability BEFORE any data collective
-        # so one incapable rank sends ALL ranks to the replicated
-        # Python loop instead of leaving the others in the allgather
-        from ..dist.comm import all_ranks_ok
 
-        cap = all_ranks_ok(cap)
-    if not cap:
-        return False
+def _ec_inputs(read_db: ReadDB, scg: Scg) -> _EcInputs:
     g = scg.utg
     g._flush_pending()
     n_vtx = g.n_vtx
@@ -394,7 +384,7 @@ def _correct_reads_native(
             np.concatenate([r.hoco_code for r in reads]).astype(np.uint8, copy=False) if n_reads else z8
         )
 
-    g_args = (
+    graph = (
         np.ascontiguousarray(g.idx_p, np.int64),
         np.ascontiguousarray(g.idx_n, np.int64),
         np.ascontiguousarray(g.aw, np.uint64),
@@ -404,54 +394,14 @@ def _correct_reads_native(
         np.ascontiguousarray(g.vtx_len, np.int64),
         np.ascontiguousarray(scg.scm_db.del_, np.uint8),
     )
+    lazy = dict(lazy_src=lazy_src, lazy_rev=lazy_rev, lazy_codes=lazy_codes)
+    return _EcInputs(graph, lazy, kflat, mflat, moff, code_flat, hoff, hoco_l)
 
-    def run_range(lo: int, hi: int):
-        if lo == 0 and hi == n_reads:
-            k_s, m_s, moff_s = kflat, mflat, moff
-            c_s, hoff_s, hl_s = code_flat, hoff, hoco_l
-        else:
-            k_s = kflat[moff[lo] : moff[hi]]
-            m_s = mflat[moff[lo] : moff[hi]]
-            moff_s = moff[lo : hi + 1] - moff[lo]
-            c_s = code_flat[hoff[lo] : hoff[hi]]
-            hoff_s = hoff[lo : hi + 1] - hoff[lo]
-            hl_s = hoco_l[lo:hi]
-        return native.ec_correct_reads(
-            *g_args,
-            np.ascontiguousarray(k_s), np.ascontiguousarray(m_s),
-            np.ascontiguousarray(moff_s), np.ascontiguousarray(c_s),
-            np.ascontiguousarray(hoff_s), np.ascontiguousarray(hl_s),
-            read_db.k, max_edist,
-            lazy_src=lazy_src, lazy_rev=lazy_rev, lazy_codes=lazy_codes,
-        )
 
-    parts = []
-    failed = False
-    for lo, hi in ranges or [(0, n_reads)]:
-        res = run_range(lo, hi)
-        if res is None:
-            failed = True
-            break
-        parts.append(res)
-    if gather is not None:
-        # second agreement: a data-dependent failure (allocation,
-        # wavefront overflow) on one rank must not skip the collective
-        from ..dist.comm import all_ranks_ok
-
-        if not all_ranks_ok(not failed):
-            return False
-    if failed:
-        return False
-    if gather is not None:
-        import time as _time
-
-        _g0 = _time.perf_counter()
-        parts = gather(parts)
-        if os.environ.get("OATK_TPU_TIMEIT"):
-            print(
-                f"[T::dist] ec_gather={(_time.perf_counter() - _g0) * 1000:.1f}ms",
-                file=sys.stderr, flush=True,
-            )
+def _splice(read_db: ReadDB, scg: Scg, stats: np.ndarray, parts: list) -> None:
+    """Splice the native correctors' results (``native.ec_correct_reads``'s
+    outputs of contiguous read ranges, in read order) into the reads, add
+    their stats, and bump ``read_db.version``."""
     if len(parts) == 1:
         st, out_kmer, out_mpos, out_cut, out_upd = parts[0]
     else:
@@ -470,6 +420,7 @@ def _correct_reads_native(
     stats += st
     from .consensus import set_read_flats
 
+    reads = read_db.reads
     cached = getattr(read_db, "_rflats_cache", None)
     old_rf = (
         cached[1]
@@ -512,7 +463,111 @@ def _correct_reads_native(
             new_sflat[mask] = smer_all[src_idx[mask]]
             new_sflat[inv] = old_rf._sflat[src_idx[inv]]
         set_read_flats(read_db, nl, new_kflat, new_mflat, new_sflat, old_rf.sids)
+
+
+def _correct_reads_native(
+    read_db: ReadDB, scg: Scg, max_edist: float, stats: np.ndarray,
+    ranges: list[tuple[int, int]] | None = None, gather=None,
+) -> bool:
+    """Run the batched C corrector (native/ec.c); returns False when
+    unavailable so the caller uses the Python loop.
+
+    ranges: contiguous read ranges to correct here (data parallelism
+    over processes, reference syncerr.c:882); ``gather`` turns the local
+    parts into the full part list in read order (the cross-process
+    allgather).  Per-read corrections are independent (the graph is
+    read-only during EC), so the merged splice is bit-identical to an
+    unsharded run."""
+    from .. import native
+
+    # an explicit wavefront backend (device / numpy) must actually drive
+    # EC: route through the lockstep drivers or the Python loop
+    cap = _wf.WF_BACKEND == "auto" and native.available()
+    if gather is not None:
+        # cross-process: agree on capability BEFORE any data collective
+        # so one incapable rank sends ALL ranks to the replicated
+        # Python loop instead of leaving the others in the allgather
+        from ..dist.comm import all_ranks_ok
+
+        cap = all_ranks_ok(cap)
+    if not cap:
+        return False
+    x = _ec_inputs(read_db, scg)
+    n_reads = len(x.hoco_l)
+
+    def run_range(lo: int, hi: int):
+        if lo == 0 and hi == n_reads:
+            k_s, m_s, moff_s = x.kflat, x.mflat, x.moff
+            c_s, hoff_s, hl_s = x.code_flat, x.hoff, x.hoco_l
+        else:
+            k_s = x.kflat[x.moff[lo] : x.moff[hi]]
+            m_s = x.mflat[x.moff[lo] : x.moff[hi]]
+            moff_s = x.moff[lo : hi + 1] - x.moff[lo]
+            c_s = x.code_flat[x.hoff[lo] : x.hoff[hi]]
+            hoff_s = x.hoff[lo : hi + 1] - x.hoff[lo]
+            hl_s = x.hoco_l[lo:hi]
+        return native.ec_correct_reads(
+            *x.graph,
+            np.ascontiguousarray(k_s), np.ascontiguousarray(m_s),
+            np.ascontiguousarray(moff_s), np.ascontiguousarray(c_s),
+            np.ascontiguousarray(hoff_s), np.ascontiguousarray(hl_s),
+            read_db.k, max_edist, **x.lazy,
+        )
+
+    parts = []
+    failed = False
+    for lo, hi in ranges or [(0, n_reads)]:
+        res = run_range(lo, hi)
+        if res is None:
+            failed = True
+            break
+        parts.append(res)
+    if gather is not None:
+        # second agreement: a data-dependent failure (allocation,
+        # wavefront overflow) on one rank must not skip the collective
+        from ..dist.comm import all_ranks_ok
+
+        if not all_ranks_ok(not failed):
+            return False
+    if failed:
+        return False
+    if gather is not None:
+        import time as _time
+
+        _g0 = _time.perf_counter()
+        parts = gather(parts)
+        if os.environ.get("OATK_TPU_TIMEIT"):
+            print(
+                f"[T::dist] ec_gather={(_time.perf_counter() - _g0) * 1000:.1f}ms",
+                file=sys.stderr, flush=True,
+            )
+    _splice(read_db, scg, stats, parts)
     return True
+
+
+def _correct_reads_lockstep_native(
+    read_db: ReadDB, scg: Scg, max_edist: float, stats: np.ndarray, device,
+    smem_limit: int | None = None, force_global: bool = False,
+) -> None:
+    """The device backend's EC with its DFS in C (csrc/ec_lockstep.c):
+    the reads' searches advance in lockstep rounds, each laid out and
+    packed by the C driver and run by ``kernels/wf_ed.py:wf_ed_lockstep``
+    as one ragged launch on ``device`` (the plain version on the CPU); at
+    most ``EC_INFLIGHT`` reads in flight.  The same extensions, rounds
+    and results as :func:`_correct_reads_lockstep`; ``smem_limit`` and
+    ``force_global`` choose the items' kernel routes (for tests)."""
+    from .. import native
+    from ..kernels.wf_ed import wf_ed_lockstep
+    from .ec_lockstep import Lockstep
+
+    x = _ec_inputs(read_db, scg)
+    with Lockstep(*x.graph, x.kflat, x.mflat, x.moff, x.code_flat, x.hoff, x.hoco_l,
+                  read_db.k, max_edist, inflight=EC_INFLIGHT or 0,
+                  n_threads=native.n_threads_default(), **x.lazy) as ls:
+        wf_ed_lockstep(ls, device, smem_limit, force_global)
+        part = ls.finish()
+        read_error_correction.wf_calls += ls.extensions()
+    _splice(read_db, scg, stats, [part])
 
 
 def update_syncmer_db(read_db: ReadDB, scm_db: SyncmerDB):
@@ -579,9 +634,10 @@ def read_error_correction(
 ):
     """Correct the reads in place.  ``device`` is where the wavefront
     core runs under OATK_TPU_WF_BACKEND=device, which runs the reads'
-    DFS searches in lockstep rounds; each branch extension of the Python
-    DFS adds one to ``read_error_correction.wf_calls`` (the native batch
-    corrector of the default backend makes none)."""
+    DFS searches in lockstep rounds (the DFS in C when the native library
+    is there, else the Python generators); each branch extension adds one
+    to ``read_error_correction.wf_calls`` (the native batch corrector of
+    the default backend makes none)."""
     import time
 
     cpu0, real0 = time.process_time(), time.time()
@@ -607,16 +663,24 @@ def read_error_correction(
 
         ranges = shard_ranges(read_db.n, n_stage)
     if not _correct_reads_native(read_db, scg, max_edist, stats, ranges, gather):
+        from .. import native
         from .consensus import ensure_vtx_seq
 
-        ensure_vtx_seq(scg.utg)
-        if _wf.WF_BACKEND in _wf.DEVICE_BACKENDS:
-            _correct_reads_lockstep(read_db.reads, scg, max_edist, stats, device)
+        device_backend = _wf.WF_BACKEND in _wf.DEVICE_BACKENDS
+        if device_backend and native.available():
+            # the DFS in C; EC stays whole under the device backend: read
+            # ranges and OATK_TPU_STAGE_SHARDS do not split it, and across
+            # processes every rank corrects every read
+            _correct_reads_lockstep_native(read_db, scg, max_edist, stats, device)
         else:
-            for r in read_db.reads:
-                for st in _correct_read(r, scg, max_edist, stats, device):
-                    wf_ed_core(st)
-        read_db.version += 1  # reads were spliced in place
+            ensure_vtx_seq(scg.utg)
+            if device_backend:
+                _correct_reads_lockstep(read_db.reads, scg, max_edist, stats, device)
+            else:
+                for r in read_db.reads:
+                    for st in _correct_read(r, scg, max_edist, stats, device):
+                        wf_ed_core(st)
+            read_db.version += 1  # reads were spliced in place
 
     update_syncmer_db(read_db, scg.scm_db)
 

@@ -28,18 +28,21 @@ Two contracts, one launch of one kernel:
   and where its out_meta and out_k (of the item's own width S) go in the
   output buffer.  :func:`wf_ed_core_rounds` packs a list of ``WfState``s
   this way, so that one upload, one launch and one read-back advance all
-  of them.
+  of them; :func:`wf_ed_lockstep` runs the rounds of EC's C lockstep
+  driver (``csrc/ec_lockstep.c``), which lays out and packs the same
+  words itself.
 
 The wrappers take the plain versions only for tensors on the CPU.  For
 CUDA tensors they launch the kernel or raise; nothing falls back.  Each
 launch adds one to ``wf_ed_core_batch.launches`` and its item count to
-``wf_ed_core_batch.items``; each round, on any device, adds one to
-``wf_ed_core_rounds.rounds``.
+``wf_ed_core_batch.items``; each round of either driver, on any device,
+adds one to ``wf_ed_core_rounds.rounds``.
 """
 from __future__ import annotations
 
 import ctypes
 import threading
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -441,6 +444,11 @@ def pack_round(h32: np.ndarray, lay: RoundLayout, states) -> None:
         h8[q0 : q0 + len(st.qs)] = st.qs
 
 
+def _item_failed(i: int, B: int, err: int, meta: list, S: int) -> RuntimeError:
+    return RuntimeError(f"wf_ed: item {i} of a round of {B} failed (err={err}, meta {meta}, "
+                        f"width {S})")
+
+
 def unpack_round(o: np.ndarray, lay: RoundLayout, states) -> None:
     """Set each state from its out_meta and out_k in ``o`` (the round's
     output words), with the state conversion of the JAX package's
@@ -450,10 +458,8 @@ def unpack_round(o: np.ndarray, lay: RoundLayout, states) -> None:
     bad = np.flatnonzero(om[:, 6])
     if bad.size:
         i = int(bad[0])
-        raise RuntimeError(
-            f"wf_ed: item {i} of a round of {len(states)} failed (err={int(om[i, 6])}, "
-            f"meta {lay.meta[i, :7].tolist()}, width {int(lay.desc[i, 7])})"
-        )
+        raise _item_failed(i, len(states), int(om[i, 6]), lay.meta[i, :7].tolist(),
+                           int(lay.desc[i, 7]))
     for st, (score, d0, nn, hit, t_raw, q_raw), k0 in zip(
         states, om[:, :6].tolist(), lay.desc[:, 5].tolist()
     ):
@@ -542,6 +548,92 @@ def wf_ed_core_rounds(states, device=None) -> None:
 
 
 wf_ed_core_rounds.rounds = 0
+
+
+def wf_ed_lockstep(driver, device, smem_limit: int | None = None, force_global: bool = False) -> dict:
+    """Run the rounds of a lockstep ``driver`` (``asm/ec_lockstep.py:
+    Lockstep``, which lays out, packs and unpacks each round in C) on
+    ``device`` until its reads are done.  Each round: ``driver.layout``,
+    the buffers grown, ``driver.pack`` into the pinned host buffer, a
+    ``non_blocking`` upload, :func:`wf_ed_core_ragged`, the read-back into
+    the pinned output buffer and one synchronise, ``driver.unpack``.
+    ``smem_limit`` (default: the card's, or no limit on the CPU, whose
+    plain version takes no routes) and ``force_global`` choose each item's
+    route as in :func:`round_layout`.  An item's ``err`` raises.
+
+    Returns the run's split, also kept in ``wf_ed_lockstep.last``: rounds,
+    items per round, bytes uploaded and read back, host seconds in
+    layout, pack (with growing the buffers), the round trip (upload,
+    launch, read-back, synchronise) and unpack, items on the global
+    route; with ``wf_ed_lockstep.events``
+    set on a card, the upload, kernel and read-back device times in ms
+    (CUDA events)."""
+    dev = _device_of(device)
+    buf = _bufs.get(dev)
+    if buf is None:
+        buf = _bufs[dev] = _Buffers(dev)
+    card = dev.type == "cuda"
+    if smem_limit is None:
+        smem_limit = _smem_limit_of(_load(), dev) if card else _I32_MAX
+    timed = card and wf_ed_lockstep.events
+    split = dict(rounds=0, items=[], in_bytes=0, out_bytes=0, n_global=0, layout_s=0.0,
+                 pack_s=0.0, trip_s=0.0, unpack_s=0.0, upload_ms=0.0, kernel_ms=0.0,
+                 readback_ms=0.0)
+    wf_ed_lockstep.last = split
+    clock = time.perf_counter
+    while True:
+        t0 = clock()
+        shape = driver.layout(smem_limit, force_global)
+        t1 = clock()
+        split["layout_s"] += t1 - t0
+        if shape.B == 0:
+            return split
+        buf.ensure(shape.in_words, shape.out_words, shape.scratch_words)
+        h_in, h_out = buf.h_in[: shape.in_words], buf.h_out[: shape.out_words]
+        driver.pack(h_in.numpy(), shape)
+        t2 = clock()
+        d_in, d_out = buf.d_in[: shape.in_words], buf.d_out[: shape.out_words]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)] if timed else None
+        if card:
+            if timed:
+                ev[0].record()
+            d_in.copy_(h_in, non_blocking=True)
+            if timed:
+                ev[1].record()
+        wf_ed_core_ragged(d_in, d_out, shape.B, shape.smem,
+                          buf.d_scr if shape.scratch_words else None)
+        if card:
+            if timed:
+                ev[2].record()
+            h_out.copy_(d_out, non_blocking=True)
+            if timed:
+                ev[3].record()
+            torch.cuda.current_stream(dev).synchronize()
+        t3 = clock()
+        wf_ed_core_rounds.rounds += 1
+        o = h_out.numpy()
+        bad = driver.unpack(o, shape)
+        if bad >= 0:
+            w = h_in.numpy()
+            meta = w[shape.B * DESC_WORDS + 8 * bad:][:7].tolist()
+            desc = w[bad * DESC_WORDS:][:DESC_WORDS]
+            raise _item_failed(bad, shape.B, int(o[desc[4] + 6]), meta, int(desc[7]))
+        split["unpack_s"] += clock() - t3
+        split["pack_s"] += t2 - t1
+        split["trip_s"] += t3 - t2
+        split["rounds"] += 1
+        split["items"].append(shape.B)
+        split["in_bytes"] += 4 * shape.in_words
+        split["out_bytes"] += 4 * shape.out_words
+        split["n_global"] += shape.n_global
+        if timed:
+            split["upload_ms"] += ev[0].elapsed_time(ev[1])
+            split["kernel_ms"] += ev[1].elapsed_time(ev[2])
+            split["readback_ms"] += ev[2].elapsed_time(ev[3])
+
+
+wf_ed_lockstep.events = False
+wf_ed_lockstep.last = None
 
 
 def wf_ed_core_device(st) -> None:

@@ -166,8 +166,9 @@ def test_stage_shards_gfa(stage_set, unsharded, tmp_path, monkeypatch, capsys, n
 
 def test_stage_shards_device_ec_stays_whole(stage_set, unsharded, tmp_path, monkeypatch, capsys):
     """Under OATK_TPU_WF_BACKEND=device EC runs whole, in one lockstep
-    pass over every read; alignment still splits; the GFAs equal the
-    unsharded default run's."""
+    pass over every read (the C driver's, as the native library is
+    there); alignment still splits; the GFAs equal the unsharded default
+    run's."""
     from oatk_tpu_torch.asm import ec as TE
     from oatk_tpu_torch.kernels import wavefront as TW
 
@@ -177,6 +178,9 @@ def test_stage_shards_device_ec_stays_whole(stage_set, unsharded, tmp_path, monk
     real = TE._correct_reads_lockstep
     monkeypatch.setattr(TE, "_correct_reads_lockstep",
                         lambda reads, *a: passes.append(len(reads)) or real(reads, *a))
+    real_c = TE._correct_reads_lockstep_native
+    monkeypatch.setattr(TE, "_correct_reads_lockstep_native",
+                        lambda rd, *a: passes.append(len(rd.reads)) or real_c(rd, *a))
     out = str(tmp_path / "dev")
     _port_syncasm(stage_set, out, capsys, verbose=0)
     plain, _ = unsharded

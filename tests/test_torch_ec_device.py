@@ -3,10 +3,11 @@
 the kernel's plain PyTorch version (ragged contract): reads spliced
 exactly as the JAX package's EC through its Pallas backend (interpret
 mode) splices them, and a full syncasm whose GFAs are byte-identical to
-the JAX package's default run.  Every branch extension of the Python DFS
-is one item of one round; the lockstep scheduler gives the sequential
-loop's reads and stats at any number of reads in flight.  Tolerance:
-exact."""
+the JAX package's default run.  With the native library there the DFS
+runs in C (``csrc/ec_lockstep.c``), else in Python; every branch
+extension of either is one item of one round, and the lockstep gives
+the sequential loop's reads and stats at any number of reads in flight.
+Tolerance: exact."""
 import numpy as np
 import pytest
 
@@ -142,10 +143,12 @@ def test_default_backend_makes_no_wavefront_calls(reads_1p2mbp, tmp_path, monkey
 EC_ARGS = (0.02, 3, 30, 3, 0.35, 0)  # syncasm's EC at c=3
 
 
-def _corrected(mod_ec, fa, load, stage, **kw):
+def _corrected(mod_ec, fa, load, stage, during_ec=(), **kw):
     """EC of ``mod_ec`` on the 1.2 Mbp set after syncasm's pre-EC steps
     (``load``/``stage`` build the reads and the graph): each read's
-    (k_mer, m_pos) and the stats vector, caught from ``_correct_read``."""
+    (k_mer, m_pos) and the stats vector, caught from ``_correct_read``
+    or from the port's C lockstep driver.  ``during_ec``: (object, name,
+    value) settings that hold only while EC runs."""
     rd, scg = stage(load(fa))
     caught = []
     real = mod_ec._correct_read
@@ -156,6 +159,15 @@ def _corrected(mod_ec, fa, load, stage, **kw):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(mod_ec, "_correct_read", catch)
+        real_native = getattr(mod_ec, "_correct_reads_lockstep_native", None)
+        if real_native is not None:
+            def catch_native(rd_, scg_, max_edist, stats, *rest, **kw_):
+                caught.append(stats)
+                return real_native(rd_, scg_, max_edist, stats, *rest, **kw_)
+
+            mp.setattr(mod_ec, "_correct_reads_lockstep_native", catch_native)
+        for obj, name, value in during_ec:
+            mp.setattr(obj, name, value)
         mod_ec.read_error_correction(rd, scg, *EC_ARGS, **kw)
     return [(r.k_mer.copy(), r.m_pos.copy()) for r in rd.reads], caught[0].copy()
 
@@ -170,14 +182,19 @@ def _stage(mods):
     return run
 
 
-def _port_ec(fa):
+def _port_ec(fa, route="native", device="cpu"):
+    """The port's EC on ``device``; ``route="python"`` hides the native
+    library while EC runs, so the device backend takes the Python DFS."""
+    import oatk_tpu_torch.native as native
     from oatk_tpu_torch.asm.consensus import scg_consensus
     from oatk_tpu_torch.asm.pipeline import load_reads
     from oatk_tpu_torch.asm.scg import make_syncmer_graph
     from oatk_tpu_torch.index.syncmer_db import collect_syncmer_db
 
+    during = [(native, "available", lambda: False)] if route == "python" else []
     return _corrected(TEC, fa, lambda f: load_reads([f], 151, 13, 0, "cpu"),
-                      _stage((make_syncmer_graph, collect_syncmer_db, scg_consensus)), device="cpu")
+                      _stage((make_syncmer_graph, collect_syncmer_db, scg_consensus)),
+                      during_ec=during, device=device)
 
 
 @pytest.fixture(scope="module")
@@ -208,19 +225,25 @@ def ec_references(reads_1p2mbp):
     return jax_ref, seq, seq_calls
 
 
-@pytest.mark.parametrize("inflight", [1, 7, None], ids=["1", "7", "all"])
-def test_lockstep_matches_sequential(reads_1p2mbp, ec_references, monkeypatch, count_plain, inflight):
-    """The lockstep scheduler at EC_INFLIGHT 1, 7 and every read: each
-    read's k_mer/m_pos and the stats vector equal the port's sequential
-    loop's and the JAX package's Pallas-backend EC's, with one round per
-    call at 1 and 16 rounds (the longest chain of calls of one read) with
-    every read in flight."""
+@pytest.mark.parametrize("inflight,route", [
+    pytest.param(1, "native", id="1"), pytest.param(7, "native", id="7"),
+    pytest.param(None, "native", id="all"), pytest.param(1, "python", id="1-python"),
+    pytest.param(7, "python", id="7-python"), pytest.param(None, "python", id="all-python"),
+])
+def test_lockstep_matches_sequential(reads_1p2mbp, ec_references, monkeypatch, count_plain, inflight,
+                                     route):
+    """The lockstep scheduler at EC_INFLIGHT 1, 7 and every read, with the
+    DFS in C (``native``, the route when the native library is there) and
+    in Python: each read's k_mer/m_pos and the stats vector equal the
+    port's sequential loop's and the JAX package's Pallas-backend EC's,
+    with one round per call at 1 and 16 rounds (the longest chain of
+    calls of one read) with every read in flight."""
     (j_reads, j_stats), (s_reads, s_stats), seq_calls = ec_references
     monkeypatch.setattr(TW, "WF_BACKEND", "device")
     monkeypatch.setattr(TEC, "EC_INFLIGHT", inflight)
     monkeypatch.setattr(TEC.read_error_correction, "wf_calls", 0)
     monkeypatch.setattr(WE.wf_ed_core_rounds, "rounds", 0)
-    reads, stats = _port_ec(reads_1p2mbp)
+    reads, stats = _port_ec(reads_1p2mbp, route)
     calls, rounds = TEC.read_error_correction.wf_calls, WE.wf_ed_core_rounds.rounds
 
     assert len(reads) == len(s_reads) == len(j_reads) > 0
