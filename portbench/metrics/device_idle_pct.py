@@ -1,0 +1,9 @@
+"""device_idle_pct: share of the traced window in which no operation ran
+on the device, in %."""
+
+
+def read(ctx):
+    r = ctx.get("trace")
+    if r is None or r.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - r.busy_s / r.window_s)
