@@ -15,6 +15,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..index.syncmer_db import MAX_RD_SCM, SyncmerDB
+from ..utils.trace import span
 from .reads import ReadDB
 from .scg import Scg
 
@@ -522,22 +523,14 @@ def scg_consensus(
     in single batched C calls -- per-call ctypes dispatch dominated
     large unfiltered graphs otherwise.  Under OATK_TPU_DEVICE_CONSENSUS
     the run-length reduction of every syncmer runs on ``device``."""
-    from ..utils import stage_timer
-
-    _tm = stage_timer("scg_consensus")
-
-    def _t(name):
-        if _tm:
-            _tm(name)
-
-    utg = scg.utg
-    scm_db = scg.scm_db
-    w = read_db.k
-    utg.clean_consensus()
-    flats = _Flats.build(read_db, scm_db)
-    if fo:
-        fo.write("H\tVN:Z:1.0\n")
-    _t("flats")
+    with span("flats"):
+        utg = scg.utg
+        scm_db = scg.scm_db
+        w = read_db.k
+        utg.clean_consensus()
+        flats = _Flats.build(read_db, scm_db)
+        if fo:
+            fo.write("H\tVN:Z:1.0\n")
 
     n_vtx = utg.n_vtx
     batched = flats is not None and n_vtx > 0
@@ -549,245 +542,242 @@ def scg_consensus(
     if batched:
         from .. import native
 
-        vf = getattr(utg, "_va_flat", None)
-        vo = getattr(utg, "_va_off", None)
-        if vf is not None and vo is not None and len(vo) == n_vtx + 1:
-            va_flat, va_off = vf, vo
-        else:
-            va_flat = (
-                np.concatenate(
-                    [np.asarray(utg.vtx_a[i], np.uint64) for i in range(n_vtx)]
+        with span("va_flat"):
+            vf = getattr(utg, "_va_flat", None)
+            vo = getattr(utg, "_va_off", None)
+            if vf is not None and vo is not None and len(vo) == n_vtx + 1:
+                va_flat, va_off = vf, vo
+            else:
+                va_flat = (
+                    np.concatenate(
+                        [np.asarray(utg.vtx_a[i], np.uint64) for i in range(n_vtx)]
+                    )
+                    if n_vtx else np.zeros(0, np.uint64)
                 )
-                if n_vtx else np.zeros(0, np.uint64)
+                va_off = np.zeros(n_vtx + 1, np.int64)
+                np.cumsum(
+                    np.fromiter(
+                        (len(utg.vtx_a[i]) for i in range(n_vtx)), np.int64, count=n_vtx
+                    ),
+                    out=va_off[1:],
+                )
+        with span("emit_batch"):
+            live = (~np.asarray(utg.vtx_del[:n_vtx], bool)).astype(np.uint8)
+            va_len = np.diff(va_off)
+            # Lazy hoco consensus (the EC-graph call): every vertex is one
+            # syncmer and no read has an EC flag yet, so each vertex's hoco
+            # consensus is exactly the first occurrence's window in the hoco
+            # stream (scm_consensus_fill semantics with all occurrences
+            # un-corrected).  Record (stream offset, rev) per vertex instead
+            # of materializing the ~100 MB ASCII buffer; native EC and
+            # ensure_vtx_seq decode on demand.
+            lazy = (
+                hoco_seq
+                and save_seq
+                and fo is None
+                and bool(np.all(va_len == 1))
+                and not bool((flats.kflat & np.uint64(1)).any())
             )
-            va_off = np.zeros(n_vtx + 1, np.int64)
-            np.cumsum(
-                np.fromiter(
-                    (len(utg.vtx_a[i]) for i in range(n_vtx)), np.int64, count=n_vtx
-                ),
-                out=va_off[1:],
-            )
-        _t("va_flat")
-        live = (~np.asarray(utg.vtx_del[:n_vtx], bool)).astype(np.uint8)
-        va_len = np.diff(va_off)
-        # Lazy hoco consensus (the EC-graph call): every vertex is one
-        # syncmer and no read has an EC flag yet, so each vertex's hoco
-        # consensus is exactly the first occurrence's window in the hoco
-        # stream (scm_consensus_fill semantics with all occurrences
-        # un-corrected).  Record (stream offset, rev) per vertex instead
-        # of materializing the ~100 MB ASCII buffer; native EC and
-        # ensure_vtx_seq decode on demand.
-        lazy = (
-            hoco_seq
-            and save_seq
-            and fo is None
-            and bool(np.all(va_len == 1))
-            and not bool((flats.kflat & np.uint64(1)).any())
-        )
-        if lazy:
-            hoco_total = len(flats.code_flat)
-            s_ids = (va_flat >> np.uint64(1)).astype(np.int64)
-            vrev = (va_flat & np.uint64(1)).astype(np.uint32)
-            mo0 = flats.mp_off[s_ids]
-            has = flats.mp_off[s_ids + 1] > mo0
-            lsrc = np.full(n_vtx, -1, np.int64)
-            lrev = np.zeros(n_vtx, np.uint8)
-            if np.any(has):
-                e0 = flats.mp_flat[mo0[has]]
-                sid = (e0 >> np.uint64(32)).astype(np.int64)
-                idx = ((e0 >> np.uint64(1)) & np.uint64(0x7FFFFFFF)).astype(np.int64)
-                praw = flats.mflat[flats.moff[sid] + idx]
-                r = ((praw & np.uint32(1)).astype(np.uint32) ^ vrev[has]).astype(np.uint8)
-                st = flats.hoff[sid] + (praw >> np.uint32(1)).astype(np.int64)
-                if bool(np.all((st >= 0) & (st + w <= hoco_total))):
-                    lsrc[has] = st
-                    lrev[has] = r
+            if lazy:
+                hoco_total = len(flats.code_flat)
+                s_ids = (va_flat >> np.uint64(1)).astype(np.int64)
+                vrev = (va_flat & np.uint64(1)).astype(np.uint32)
+                mo0 = flats.mp_off[s_ids]
+                has = flats.mp_off[s_ids + 1] > mo0
+                lsrc = np.full(n_vtx, -1, np.int64)
+                lrev = np.zeros(n_vtx, np.uint8)
+                if np.any(has):
+                    e0 = flats.mp_flat[mo0[has]]
+                    sid = (e0 >> np.uint64(32)).astype(np.int64)
+                    idx = ((e0 >> np.uint64(1)) & np.uint64(0x7FFFFFFF)).astype(np.int64)
+                    praw = flats.mflat[flats.moff[sid] + idx]
+                    r = ((praw & np.uint32(1)).astype(np.uint32) ^ vrev[has]).astype(np.uint8)
+                    st = flats.hoff[sid] + (praw >> np.uint32(1)).astype(np.int64)
+                    if bool(np.all((st >= 0) & (st + w <= hoco_total))):
+                        lsrc[has] = st
+                        lrev[has] = r
+                    else:
+                        lazy = False  # corrupt-entry guard: materialize instead
+            if not lazy:
+                # window-sum bound covers hoco emission; dna run-length
+                # expansion beyond the 2x margin regrows
+                cap = max(4096, 2 * int(va_off[-1]) * w)
+                while True:
+                    buf = np.empty(cap, np.uint8)
+                    cuts = np.empty(n_vtx + 1, np.int64)
+                    ret = native.utg_consensus_emit_batch(
+                        va_flat, va_off, live, w, hoco_seq,
+                        flats.mp_flat, flats.mp_off, flats.kflat, flats.mflat,
+                        flats.moff, flats.code_flat, flats.rl_flat, flats.hoff,
+                        buf, cuts,
+                        rl_ovf=flats.rl_ovf,
+                    )
+                    if ret >= 0:
+                        break
+                    if ret == -2:
+                        raise MemoryError("utg_consensus_emit_batch allocation failure")
+                    cap *= 4
+        with span("lens_covs"):
+            if save_seq:
+                if lazy:
+                    utg._seq_buf = None
+                    utg._seq_cuts = None
+                    utg._seq_lazy = (flats.code_flat, lsrc, lrev, w)
                 else:
-                    lazy = False  # corrupt-entry guard: materialize instead
-        if not lazy:
-            # window-sum bound covers hoco emission; dna run-length
-            # expansion beyond the 2x margin regrows
-            cap = max(4096, 2 * int(va_off[-1]) * w)
+                    # raw emission buffer for native EC; vtx_seq strings are
+                    # NOT decoded here -- the EC Python fallback decodes on
+                    # demand via ensure_vtx_seq (the scg0 call would
+                    # otherwise decode tens of thousands of single-syncmer
+                    # strings for nothing)
+                    utg._seq_buf = buf[: int(ret)].copy()
+                    utg._seq_cuts = cuts.copy()
+                    utg._seq_lazy = None
+            # per-vertex lengths/coverages vectorized; fresh coverages for
+            # single-syncmer vertices collapse to that syncmer's own count
+            # (_utg_avg_cov of one value is the value, whichever sel branch)
+            live_b = live.view(bool)
+            lens_all = np.full(n_vtx, w, np.int64) if lazy else np.diff(cuts)
+            if lazy:
+                # EC-graph call: nothing downstream reads scg0's vtx_cov
+                # (native/python EC consume seqs, lens and arcs; the graph
+                # is dropped after EC), so skip the cov recomputation; the
+                # emitted length of a single-syncmer hoco window is w
+                if bool(np.all(live_b)):
+                    utg.vtx_len[:n_vtx] = [w] * n_vtx
+                else:
+                    old_len = np.fromiter(
+                        (utg.vtx_len[i] for i in range(n_vtx)), np.int64, count=n_vtx
+                    )
+                    utg.vtx_len[:n_vtx] = np.where(live_b, w, old_len).tolist()
+                cov_f = None
+            else:
+                cov_f = np.fromiter(
+                    (utg.vtx_cov[i] for i in range(n_vtx)), np.float64, count=n_vtx
+                )
+                need = live_b & (cov_f == 0)
+                single = need & (va_len == 1)
+                if np.any(single):
+                    s1 = (va_flat[va_off[:-1][single]] >> np.uint64(1)).astype(np.int64)
+                    cov_f[single] = scm_db.cov[s1]
+                for i in np.flatnonzero(need & (va_len != 1)).tolist():
+                    cov_f[i] = _utg_avg_cov(scg, i)
+                old_len = np.fromiter(
+                    (utg.vtx_len[i] for i in range(n_vtx)), np.int64, count=n_vtx
+                )
+                new_len = np.where(live_b, lens_all, old_len)
+                old_cov = np.fromiter(
+                    (utg.vtx_cov[i] for i in range(n_vtx)), np.int64, count=n_vtx
+                )
+                new_cov = np.where(live_b, cov_f.astype(np.int64), old_cov)
+                utg.vtx_len[:n_vtx] = new_len.tolist()
+                utg.vtx_cov[:n_vtx] = new_cov.tolist()
+        with span("emit_gfa"):
+            if fo is not None:
+                for i in np.flatnonzero(live_b).tolist():
+                    l = int(lens_all[i])
+                    cov = float(cov_f[i])
+                    seq = buf[cuts[i] : cuts[i + 1]].tobytes().decode()
+                    fo.write(
+                        f"S\tu{i}\t{seq}\tLN:i:{l}\tKC:i:{int(l * cov)}\tSC:f:{cov:.3f}\n"
+                    )
+    else:
+        with span("emit_gfa"):
+            for i in range(n_vtx):
+                if utg.vtx_del[i]:
+                    continue
+                chunks: list[bytes] = []
+                l = unitig_consensus(read_db, scm_db, utg.vtx_a[i], chunks, hoco_seq, flats, device)
+                seq = b"".join(chunks).decode()
+                assert len(seq) == l
+                cov = utg.vtx_cov[i] if utg.vtx_cov[i] else _utg_avg_cov(scg, i)
+                utg.vtx_cov[i] = int(cov)
+                utg.vtx_len[i] = l
+                if save_seq:
+                    utg.vtx_seq[i] = seq
+                if fo:
+                    fo.write(
+                        f"S\tu{i}\t{seq}\tLN:i:{l}\tKC:i:{int(l * cov)}\tSC:f:{float(cov):.3f}\n"
+                    )
+
+    with span("emit_gfa"):
+        utg._flush_pending()
+    n_arc = len(utg.av)
+    als_batch = None
+    with span("arc_batch"):
+        if batched and n_arc:
+            vtx_len_arr = np.asarray(utg.vtx_len[:n_vtx], np.int64)
+            als_batch = np.full(n_arc, -1, np.int64)
+            scratch_cap = max(4096, 4 * w * 64)
             while True:
-                buf = np.empty(cap, np.uint8)
-                cuts = np.empty(n_vtx + 1, np.int64)
-                ret = native.utg_consensus_emit_batch(
-                    va_flat, va_off, live, w, hoco_seq,
+                ret = native.arc_overlap_batch(
+                    np.ascontiguousarray(utg.av, np.uint64),
+                    np.ascontiguousarray(utg.aw, np.uint64),
+                    np.ascontiguousarray(utg.aln, np.int64),
+                    np.ascontiguousarray(utg.adel, np.uint8),
+                    np.ascontiguousarray(utg.acomp, np.uint8),
+                    va_flat, va_off, vtx_len_arr, w, hoco_seq,
                     flats.mp_flat, flats.mp_off, flats.kflat, flats.mflat,
                     flats.moff, flats.code_flat, flats.rl_flat, flats.hoff,
-                    buf, cuts,
+                    scratch_cap, als_batch,
                     rl_ovf=flats.rl_ovf,
                 )
                 if ret >= 0:
                     break
                 if ret == -2:
-                    raise MemoryError("utg_consensus_emit_batch allocation failure")
-                cap *= 4
-        _t("emit_batch")
-        if save_seq:
-            if lazy:
-                utg._seq_buf = None
-                utg._seq_cuts = None
-                utg._seq_lazy = (flats.code_flat, lsrc, lrev, w)
-            else:
-                # raw emission buffer for native EC; vtx_seq strings are
-                # NOT decoded here -- the EC Python fallback decodes on
-                # demand via ensure_vtx_seq (the scg0 call would
-                # otherwise decode tens of thousands of single-syncmer
-                # strings for nothing)
-                utg._seq_buf = buf[: int(ret)].copy()
-                utg._seq_cuts = cuts.copy()
-                utg._seq_lazy = None
-        # per-vertex lengths/coverages vectorized; fresh coverages for
-        # single-syncmer vertices collapse to that syncmer's own count
-        # (_utg_avg_cov of one value is the value, whichever sel branch)
-        live_b = live.view(bool)
-        lens_all = np.full(n_vtx, w, np.int64) if lazy else np.diff(cuts)
-        if lazy:
-            # EC-graph call: nothing downstream reads scg0's vtx_cov
-            # (native/python EC consume seqs, lens and arcs; the graph
-            # is dropped after EC), so skip the cov recomputation; the
-            # emitted length of a single-syncmer hoco window is w
-            if bool(np.all(live_b)):
-                utg.vtx_len[:n_vtx] = [w] * n_vtx
-            else:
-                old_len = np.fromiter(
-                    (utg.vtx_len[i] for i in range(n_vtx)), np.int64, count=n_vtx
-                )
-                utg.vtx_len[:n_vtx] = np.where(live_b, w, old_len).tolist()
-            cov_f = None
-        else:
-            cov_f = np.fromiter(
-                (utg.vtx_cov[i] for i in range(n_vtx)), np.float64, count=n_vtx
-            )
-            need = live_b & (cov_f == 0)
-            single = need & (va_len == 1)
-            if np.any(single):
-                s1 = (va_flat[va_off[:-1][single]] >> np.uint64(1)).astype(np.int64)
-                cov_f[single] = scm_db.cov[s1]
-            for i in np.flatnonzero(need & (va_len != 1)).tolist():
-                cov_f[i] = _utg_avg_cov(scg, i)
-            old_len = np.fromiter(
-                (utg.vtx_len[i] for i in range(n_vtx)), np.int64, count=n_vtx
-            )
-            new_len = np.where(live_b, lens_all, old_len)
-            old_cov = np.fromiter(
-                (utg.vtx_cov[i] for i in range(n_vtx)), np.int64, count=n_vtx
-            )
-            new_cov = np.where(live_b, cov_f.astype(np.int64), old_cov)
-            utg.vtx_len[:n_vtx] = new_len.tolist()
-            utg.vtx_cov[:n_vtx] = new_cov.tolist()
-        _t("lens_covs")
-        if fo is not None:
-            for i in np.flatnonzero(live_b).tolist():
-                l = int(lens_all[i])
-                cov = float(cov_f[i])
-                seq = buf[cuts[i] : cuts[i + 1]].tobytes().decode()
-                fo.write(
-                    f"S\tu{i}\t{seq}\tLN:i:{l}\tKC:i:{int(l * cov)}\tSC:f:{cov:.3f}\n"
-                )
-    else:
-        for i in range(n_vtx):
-            if utg.vtx_del[i]:
+                    raise MemoryError("arc_overlap_batch worker allocation failure")
+                scratch_cap *= 4
+
+    with span("arcs"):
+        if als_batch is not None and fo is None and n_arc:
+            # no GFA emission: the batched overlaps scatter straight into
+            # als (arc + complement), no per-arc Python walk
+            from ..graph.asmg import _match_complements
+
+            part = getattr(utg, "_arc_partner", None)
+            if part is None or len(part) != n_arc:
+                part = _match_complements(utg.av, utg.aw)
+            if part is not None:
+                sel = np.flatnonzero(~utg.adel & ~utg.acomp)
+                vals = als_batch[sel]
+                utg.als[sel] = vals
+                p = part[sel]
+                ok = p >= 0
+                utg.als[p[ok]] = vals[ok]
+                return
+        for ai in range(n_arc):
+            if utg.adel[ai] or utg.acomp[ai]:
                 continue
-            chunks: list[bytes] = []
-            l = unitig_consensus(read_db, scm_db, utg.vtx_a[i], chunks, hoco_seq, flats, device)
-            seq = b"".join(chunks).decode()
-            assert len(seq) == l
-            cov = utg.vtx_cov[i] if utg.vtx_cov[i] else _utg_avg_cov(scg, i)
-            utg.vtx_cov[i] = int(cov)
-            utg.vtx_len[i] = l
-            if save_seq:
-                utg.vtx_seq[i] = seq
-            if fo:
-                fo.write(
-                    f"S\tu{i}\t{seq}\tLN:i:{l}\tKC:i:{int(l * cov)}\tSC:f:{float(cov):.3f}\n"
-                )
-
-    utg._flush_pending()
-    _t("emit_gfa")
-    n_arc = len(utg.av)
-    als_batch = None
-    if batched and n_arc:
-        vtx_len_arr = np.asarray(utg.vtx_len[:n_vtx], np.int64)
-        als_batch = np.full(n_arc, -1, np.int64)
-        scratch_cap = max(4096, 4 * w * 64)
-        while True:
-            ret = native.arc_overlap_batch(
-                np.ascontiguousarray(utg.av, np.uint64),
-                np.ascontiguousarray(utg.aw, np.uint64),
-                np.ascontiguousarray(utg.aln, np.int64),
-                np.ascontiguousarray(utg.adel, np.uint8),
-                np.ascontiguousarray(utg.acomp, np.uint8),
-                va_flat, va_off, vtx_len_arr, w, hoco_seq,
-                flats.mp_flat, flats.mp_off, flats.kflat, flats.mflat,
-                flats.moff, flats.code_flat, flats.rl_flat, flats.hoff,
-                scratch_cap, als_batch,
-                rl_ovf=flats.rl_ovf,
-            )
-            if ret >= 0:
-                break
-            if ret == -2:
-                raise MemoryError("arc_overlap_batch worker allocation failure")
-            scratch_cap *= 4
-        _t("arc_batch")
-
-    if als_batch is not None and fo is None and n_arc:
-        # no GFA emission: the batched overlaps scatter straight into
-        # als (arc + complement), no per-arc Python walk
-        from ..graph.asmg import _match_complements
-
-        part = getattr(utg, "_arc_partner", None)
-        if part is None or len(part) != n_arc:
-            part = _match_complements(utg.av, utg.aw)
-        if part is not None:
-            sel = np.flatnonzero(~utg.adel & ~utg.acomp)
-            vals = als_batch[sel]
-            utg.als[sel] = vals
-            p = part[sel]
-            ok = p >= 0
-            utg.als[p[ok]] = vals[ok]
-            if _tm:
-                _tm("arcs")
-                _tm.done()
-            return
-    for ai in range(n_arc):
-        if utg.adel[ai] or utg.acomp[ai]:
-            continue
-        v, t = int(utg.av[ai]), int(utg.aw[ai])
-        if als_batch is not None:
-            l = int(als_batch[ai])
-        else:
-            ln = int(utg.aln[ai])
-            if ln > 0:
-                a = utg.vtx_a[v >> 1]
-                sub = a[:ln] if (v & 1) else a[len(a) - ln :]
-                chunks = []
-                l = unitig_consensus(read_db, scm_db, sub, chunks, hoco_seq, flats, device)
+            v, t = int(utg.av[ai]), int(utg.aw[ai])
+            if als_batch is not None:
+                l = int(als_batch[ai])
             else:
-                a = utg.vtx_a[v >> 1]
-                z = v & 1
-                vv = int(a[0] if z else a[-1]) ^ z
-                a2 = utg.vtx_a[t >> 1]
-                z2 = t & 1
-                tt = int(a2[-1] if z2 else a2[0]) ^ z2
-                l = calc_syncmer_overlap(read_db, scm_db, vv >> 1, vv & 1, tt >> 1, tt & 1, flats)
-                if l < w:
+                ln = int(utg.aln[ai])
+                if ln > 0:
+                    a = utg.vtx_a[v >> 1]
+                    sub = a[:ln] if (v & 1) else a[len(a) - ln :]
                     chunks = []
-                    l = syncmer_consensus(
-                        read_db, scm_db, vv >> 1, vv & 1, l, chunks, hoco_seq, flats, device
-                    )
+                    l = unitig_consensus(read_db, scm_db, sub, chunks, hoco_seq, flats, device)
                 else:
-                    l = 0
-            l = min(l, utg.vtx_len[v >> 1], utg.vtx_len[t >> 1])
-        utg.als[ai] = l
-        ci = utg.comp_arc_idx(ai)
-        if ci is not None:
-            utg.als[ci] = l
-        if fo:
-            cov = int(utg.acov[ai])
-            fo.write(f"L\tu{v>>1}\t{'+-'[v&1]}\tu{t>>1}\t{'+-'[t&1]}\t{l}M\tEC:i:{cov}\n")
-            fo.write(f"L\tu{t>>1}\t{'-+'[t&1]}\tu{v>>1}\t{'-+'[v&1]}\t{l}M\tEC:i:{cov}\n")
-    if _tm:
-        _tm("arcs")
-        _tm.done()
+                    a = utg.vtx_a[v >> 1]
+                    z = v & 1
+                    vv = int(a[0] if z else a[-1]) ^ z
+                    a2 = utg.vtx_a[t >> 1]
+                    z2 = t & 1
+                    tt = int(a2[-1] if z2 else a2[0]) ^ z2
+                    l = calc_syncmer_overlap(read_db, scm_db, vv >> 1, vv & 1, tt >> 1, tt & 1, flats)
+                    if l < w:
+                        chunks = []
+                        l = syncmer_consensus(
+                            read_db, scm_db, vv >> 1, vv & 1, l, chunks, hoco_seq, flats, device
+                        )
+                    else:
+                        l = 0
+                l = min(l, utg.vtx_len[v >> 1], utg.vtx_len[t >> 1])
+            utg.als[ai] = l
+            ci = utg.comp_arc_idx(ai)
+            if ci is not None:
+                utg.als[ci] = l
+            if fo:
+                cov = int(utg.acov[ai])
+                fo.write(f"L\tu{v>>1}\t{'+-'[v&1]}\tu{t>>1}\t{'+-'[t&1]}\t{l}M\tEC:i:{cov}\n")
+                fo.write(f"L\tu{t>>1}\t{'-+'[t&1]}\tu{v>>1}\t{'-+'[v&1]}\t{l}M\tEC:i:{cov}\n")

@@ -21,6 +21,7 @@ from ..index.syncmer_db import SyncmerDB
 from ..kernels import wavefront as _wf
 from ..kernels.wavefront import WfState, wf_ed_core
 from ..utils import log_info
+from ..utils.trace import span
 from .reads import ReadDB
 from .scg import Scg
 
@@ -532,15 +533,8 @@ def _correct_reads_native(
     if failed:
         return False
     if gather is not None:
-        import time as _time
-
-        _g0 = _time.perf_counter()
-        parts = gather(parts)
-        if os.environ.get("OATK_TPU_TIMEIT"):
-            print(
-                f"[T::dist] ec_gather={(_time.perf_counter() - _g0) * 1000:.1f}ms",
-                file=sys.stderr, flush=True,
-            )
+        with span("gather"):
+            parts = gather(parts)
     _splice(read_db, scg, stats, parts)
     return True
 

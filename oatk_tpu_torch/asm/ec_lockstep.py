@@ -24,6 +24,8 @@ from typing import NamedTuple
 
 import numpy as np
 
+from ..utils.trace import once
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "ec_lockstep.c")
 _SO = os.path.join(os.path.dirname(_PKG), "build", "native", "libec_lockstep.so")
@@ -62,28 +64,29 @@ def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            build()
-            lib = ctypes.CDLL(_SO)
-            lib.ecl_new.restype = _P
-            lib.ecl_new.argtypes = [
-                _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                _P, _P, _P, _I, _P, _P, _P, _I, ctypes.c_double, _I, _I,
-            ]
-            lib.ecl_free.restype = None
-            lib.ecl_free.argtypes = [_P]
-            lib.ecl_layout.restype = _I
-            lib.ecl_layout.argtypes = [_P, _I, _I, _P]
-            lib.ecl_pack.restype = _I
-            lib.ecl_pack.argtypes = [_P, _P]
-            lib.ecl_unpack.restype = _I
-            lib.ecl_unpack.argtypes = [_P, _P]
-            lib.ecl_out_size.restype = _I
-            lib.ecl_out_size.argtypes = [_P]
-            lib.ecl_finish.restype = _I
-            lib.ecl_finish.argtypes = [_P, _P, _P, _P, _P, _P, _I]
-            lib.ecl_extensions.restype = _I
-            lib.ecl_extensions.argtypes = [_P]
-            _lib = lib
+            with once("ec_lockstep"):
+                build()
+                lib = ctypes.CDLL(_SO)
+                lib.ecl_new.restype = _P
+                lib.ecl_new.argtypes = [
+                    _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                    _P, _P, _P, _I, _P, _P, _P, _I, ctypes.c_double, _I, _I,
+                ]
+                lib.ecl_free.restype = None
+                lib.ecl_free.argtypes = [_P]
+                lib.ecl_layout.restype = _I
+                lib.ecl_layout.argtypes = [_P, _I, _I, _P]
+                lib.ecl_pack.restype = _I
+                lib.ecl_pack.argtypes = [_P, _P]
+                lib.ecl_unpack.restype = _I
+                lib.ecl_unpack.argtypes = [_P, _P]
+                lib.ecl_out_size.restype = _I
+                lib.ecl_out_size.argtypes = [_P]
+                lib.ecl_finish.restype = _I
+                lib.ecl_finish.argtypes = [_P, _P, _P, _P, _P, _P, _I]
+                lib.ecl_extensions.restype = _I
+                lib.ecl_extensions.argtypes = [_P]
+                _lib = lib
     return _lib
 
 

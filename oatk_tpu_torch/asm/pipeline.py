@@ -27,6 +27,7 @@ from ..index.syncmer_db import collect_syncmer_db
 from ..io.fastx import read_fastx
 from ..graph.clean import drop_tip, pop_bubble, remove_weak_crosslink
 from ..utils import log_error, log_info
+from ..utils.trace import record, span, timeit_lines
 from .consensus import scg_consensus
 from .reads import ReadDB, extract_all_syncmers, load_and_extract
 from .scg import (
@@ -130,6 +131,14 @@ def syncasm(
     threads: int = 0,
     device="cuda",
 ) -> SyncasmResult:
+    """The whole assembly.  Its stages are spans of the port's recorder
+    (:mod:`..utils.trace`): the result's ``timings`` holds each stage's
+    wall seconds (``load``, ``collect_db``, ... and their children as
+    ``<stage>.<child>``), the call's wall under ``syncasm`` and the
+    process's CPU seconds over the call under ``syncasm_cpu``.
+    OATK_TPU_TIMEIT prints them on stderr (``[T::syncasm]`` lines);
+    OATK_TPU_PROFILE writes a torch.profiler trace of the call, in which
+    the stages are ranges named after their keys."""
     import os as _os
 
     dev = resolve_device(device)
@@ -146,27 +155,31 @@ def syncasm(
     # the pipeline relies on cycle collection (arrays + flat objects)
     import gc as _gc
 
-    gc_was_on = _gc.isenabled()
-    _gc.disable()
-    # CLI -t (reference run_syncasm.c:360,381: one value governs every
-    # threaded stage -- parse, align, EC, sorts).  threads=0 keeps the
-    # library default (OATK_TPU_THREADS env, else cpu_count).
     from .. import native as _native
 
-    if threads >= 1:
-        _native.set_threads(threads)
-    try:
-        with prof_ctx:
-            return _syncasm_impl(
+    with prof_ctx, record("syncasm") as tm:
+        gc_was_on = _gc.isenabled()
+        _gc.disable()
+        # CLI -t (reference run_syncasm.c:360,381: one value governs every
+        # threaded stage -- parse, align, EC, sorts).  threads=0 keeps the
+        # library default (OATK_TPU_THREADS env, else cpu_count).
+        if threads >= 1:
+            _native.set_threads(threads)
+        try:
+            res = _syncasm_impl(
                 files, k, s, min_k_cov, min_a_cov_f, bubble_size, tip_size,
                 weak_cross, do_ec, do_unzip, max_data, out, use_device, verbose, dev,
                 shards,
             )
-    finally:
-        if threads >= 1:
-            _native.set_threads(0)
-        if gc_was_on:
-            _gc.enable()
+        finally:
+            if threads >= 1:
+                _native.set_threads(0)
+            if gc_was_on:
+                _gc.enable()
+    res.timings = tm
+    if _os.environ.get("OATK_TPU_TIMEIT"):
+        print("\n".join(timeit_lines(tm, "syncasm")), file=sys.stderr, flush=True)
+    return res
 
 
 @contextlib.contextmanager
@@ -188,49 +201,35 @@ def _syncasm_impl(
     files, k, s, min_k_cov, min_a_cov_f, bubble_size, tip_size, weak_cross,
     do_ec, do_unzip, max_data, out, use_device, verbose, device, shards,
 ) -> SyncasmResult:
-    import os as _os
-    import time as _time
-
-    _tm: dict[str, float] = {}
-    _tick = [_time.perf_counter()]
-
-    def _t(stage: str) -> None:
-        # OATK_TPU_TIMEIT stage accounting ([T::syncasm] on stderr at
-        # return); no-op cost when disabled is one perf_counter call
-        now = _time.perf_counter()
-        _tm[stage] = _tm.get(stage, 0.0) + (now - _tick[0])
-        _tick[0] = now
-
-    _timeit = bool(_os.environ.get("OATK_TPU_TIMEIT"))
     collector = None
-    if shards >= 1 and not use_device:
-        log_info("--cpu disables the device mesh; ignoring --shards", func="syncasm")
-        shards = 0
-    if shards >= 1:
-        # multi-device path: data-parallel extraction + hash-range-routed
-        # occurrence sharding over a mesh of ``shards`` devices
-        # (dist/sharded_db.py); the SyncmerDB is byte-identical to the
-        # single-device path's
-        from ..dist.sharded_db import load_and_extract_sharded
-        from ..dist.sharding import make_mesh
+    with span("load"):
+        if shards >= 1 and not use_device:
+            log_info("--cpu disables the device mesh; ignoring --shards", func="syncasm")
+            shards = 0
+        if shards >= 1:
+            # multi-device path: data-parallel extraction + hash-range-routed
+            # occurrence sharding over a mesh of ``shards`` devices
+            # (dist/sharded_db.py); the SyncmerDB is byte-identical to the
+            # single-device path's
+            from ..dist.sharded_db import load_and_extract_sharded
+            from ..dist.sharding import make_mesh
 
-        warn_multi_device_settings()
-        read_db, collector = load_and_extract_sharded(
-            files, k, s, make_mesh(shards, device), max_data)
-    else:
-        read_db = load_reads(files, k, s, max_data, device, use_device)
-    _t("load")
-    log_info(f"collected syncmers from {read_db.n} target sequence(s)", func="syncasm")
-    # DB collection runs before the (silent-output-independent) stat
-    # pass: the stat's k-mer grouping then counts dense syncmer ids via
-    # bincount instead of re-sorting raw 64-bit hashes.  The printed
-    # stats are identical either way -- they depend only on the count
-    # multiset, which the hash->id rewrite preserves (locked by the
-    # -v stderr byte-parity tests).
-    scm_db = collector.build(read_db) if collector is not None else collect_syncmer_db(read_db)
-    _t("collect_db")
-    read_db_stat(read_db, sys.stderr, verbose)
-    _t("stat")
+            warn_multi_device_settings()
+            read_db, collector = load_and_extract_sharded(
+                files, k, s, make_mesh(shards, device), max_data)
+        else:
+            read_db = load_reads(files, k, s, max_data, device, use_device)
+    with span("collect_db"):
+        log_info(f"collected syncmers from {read_db.n} target sequence(s)", func="syncasm")
+        # DB collection runs before the (silent-output-independent) stat
+        # pass: the stat's k-mer grouping then counts dense syncmer ids via
+        # bincount instead of re-sorting raw 64-bit hashes.  The printed
+        # stats are identical either way -- they depend only on the count
+        # multiset, which the hash->id rewrite preserves (locked by the
+        # -v stderr byte-parity tests).
+        scm_db = collector.build(read_db) if collector is not None else collect_syncmer_db(read_db)
+    with span("stat"):
+        read_db_stat(read_db, sys.stderr, verbose)
 
     if min_k_cov == 0:
         st = read_db.stats
@@ -245,54 +244,53 @@ def _syncasm_impl(
     if do_ec:
         from .ec import read_error_correction
 
-        _t("_")
-        scg0 = make_syncmer_graph(read_db, scm_db, 0, 0.0)
-        _t("ec_graph0")
-        scg_consensus(read_db, scg0, hoco_seq=True, save_seq=True, fo=None)
-        _t("ec_consensus0")
-        read_error_correction(
-            read_db, scg0, 0.02, min_k_cov, min_k_cov * 10, min_k_cov, min_a_cov_f, verbose,
-            device=device,
-        )
-        _t("ec")
-        read_db_stat(read_db, sys.stderr, verbose)
-        _t("stat2")
+        with span("ec_graph0"):
+            scg0 = make_syncmer_graph(read_db, scm_db, 0, 0.0)
+        with span("ec_consensus0"):
+            scg_consensus(read_db, scg0, hoco_seq=True, save_seq=True, fo=None)
+        with span("ec"):
+            read_error_correction(
+                read_db, scg0, 0.02, min_k_cov, min_k_cov * 10, min_k_cov, min_a_cov_f, verbose,
+                device=device,
+            )
+        with span("stat2"):
+            read_db_stat(read_db, sys.stderr, verbose)
 
     log_info("make syncmer graph", func="syncasm")
-    _t("_")
-    scg = make_syncmer_graph(read_db, scm_db, min_k_cov, min_a_cov_f)
-    _t("make_graph")
+    with span("make_graph"):
+        scg = make_syncmer_graph(read_db, scm_db, min_k_cov, min_a_cov_f)
     if scg.is_empty():
         log_error("empty syncmer graph", func="syncasm")
         return SyncasmResult(read_db, scm_db, None, device=device)
-    log_info("syncmer graph stats", func="syncasm")
-    scg_stat(scg, sys.stderr)
-    if verbose > 1:
-        scg_subgraph_stat(scg, sys.stderr)
+    with span("graph_stat"):
+        log_info("syncmer graph stats", func="syncasm")
+        scg_stat(scg, sys.stderr)
+        if verbose > 1:
+            scg_subgraph_stat(scg, sys.stderr)
 
     log_info("syncmer graph unitigging", func="syncasm")
-    _t("_")
-    process_mergeable_unitigs(scg)
-    _t("unitig")
-    log_info("syncmer graph stats after unitigging", func="syncasm")
-    scg_stat(scg, sys.stderr)
-    _t("_")
-    with open(out + ".utg.gfa", "w") as fo:
+    with span("unitig"):
+        process_mergeable_unitigs(scg)
+    with span("graph_stat"):
+        log_info("syncmer graph stats after unitigging", func="syncasm")
+        scg_stat(scg, sys.stderr)
+    with span("utg_gfa"), open(out + ".utg.gfa", "w") as fo:
         scg_consensus(read_db, scg, hoco_seq=False, save_seq=False, fo=fo, device=device)
-    _t("utg_gfa")
     if verbose > 1:
-        scg_subgraph_stat(scg, sys.stderr)
+        with span("graph_stat"):
+            scg_subgraph_stat(scg, sys.stderr)
 
     # basic cleanup (no bubble popping before unzip: protects haplotypes)
-    log_info("syncmer graph cleanup", func="syncasm")
-    cleaned = 1
-    while cleaned:
-        cleaned = 0
-        if do_unzip <= 0:
-            cleaned += pop_bubble(scg.utg, bubble_size, 0, False, True, False, verbose)
-            cleaned += remove_weak_crosslink(scg.utg, weak_cross, 10, False, verbose)
-        cleaned += drop_tip(scg.utg, 0x7FFFFFFF, tip_size, True, False, verbose)
-    process_mergeable_unitigs(scg)
+    with span("clean"):
+        log_info("syncmer graph cleanup", func="syncasm")
+        cleaned = 1
+        while cleaned:
+            cleaned = 0
+            if do_unzip <= 0:
+                cleaned += pop_bubble(scg.utg, bubble_size, 0, False, True, False, verbose)
+                cleaned += remove_weak_crosslink(scg.utg, weak_cross, 10, False, verbose)
+            cleaned += drop_tip(scg.utg, 0x7FFFFFFF, tip_size, True, False, verbose)
+        process_mergeable_unitigs(scg)
 
     ra_db: list = []
     if do_unzip > 0:
@@ -306,62 +304,54 @@ def _syncasm_impl(
         updated = 1
         while updated and rounds < do_unzip:
             rounds += 1
-            _t("_")
-            ra_db = scg_read_alignment(read_db, scg, for_unzip=True, old_ra_db=ra_db)
-            _t("unzip_align")
-            scg_update_utg_cov(scg)
-            updated = scg_multiplex(scg, ra_db, max_n_scm, 10, 0.3)
-            _t("multiplex")
+            with span("unzip_align"):
+                ra_db = scg_read_alignment(read_db, scg, for_unzip=True, old_ra_db=ra_db)
+            with span("multiplex"):
+                scg_update_utg_cov(scg)
+                updated = scg_multiplex(scg, ra_db, max_n_scm, 10, 0.3)
             if verbose:
-                log_info(
-                    f"syncmer graph stats after multiplexing round {rounds}", func="syncasm"
-                )
-                scg_stat(scg, sys.stderr)
+                with span("graph_stat"):
+                    log_info(
+                        f"syncmer graph stats after multiplexing round {rounds}", func="syncasm"
+                    )
+                    scg_stat(scg, sys.stderr)
 
-        _t("_")
-        ra_db = scg_read_alignment(read_db, scg, for_unzip=True, old_ra_db=ra_db)
-        _t("unzip_align")
-        scg_ra_arc_coverage(scg, read_db, ra_db, refine=False, verbose=verbose)
-        remove_weak_crosslink(scg.utg, weak_cross, 10, False, verbose)
+        with span("unzip_align"):
+            ra_db = scg_read_alignment(read_db, scg, for_unzip=True, old_ra_db=ra_db)
+        with span("demux"):
+            scg_ra_arc_coverage(scg, read_db, ra_db, refine=False, verbose=verbose)
+            remove_weak_crosslink(scg.utg, weak_cross, 10, False, verbose)
+            scg_demultiplex(scg)
+        with span("unzip_align2"):
+            ra_db = scg_read_alignment(read_db, scg, for_unzip=False)
+        with span("unzip_cov"):
+            scg_ra_utg_coverage(scg, read_db, ra_db, verbose, device=device)
+            scg_ra_arc_coverage(scg, read_db, ra_db, refine=True, verbose=verbose)
+        with span("unzip_consensus"):
+            scg_consensus(read_db, scg, hoco_seq=False, save_seq=False, fo=None, device=device)
 
-        scg_demultiplex(scg)
-        _t("demux")
-        ra_db = scg_read_alignment(read_db, scg, for_unzip=False)
-        _t("unzip_align2")
-        scg_ra_utg_coverage(scg, read_db, ra_db, verbose, device=device)
-        scg_ra_arc_coverage(scg, read_db, ra_db, refine=True, verbose=verbose)
-        _t("unzip_cov")
-        scg_consensus(read_db, scg, hoco_seq=False, save_seq=False, fo=None, device=device)
-        _t("unzip_consensus")
-
-        cleaned = 1
-        while cleaned:
-            cleaned = 0
-            cleaned += pop_bubble(scg.utg, bubble_size, 0, False, True, False, verbose)
-            cleaned += remove_weak_crosslink(scg.utg, weak_cross, 10, False, verbose)
-            cleaned += drop_tip(scg.utg, 0x7FFFFFFF, tip_size, True, False, verbose)
-        process_mergeable_unitigs(scg)
+        with span("clean"):
+            cleaned = 1
+            while cleaned:
+                cleaned = 0
+                cleaned += pop_bubble(scg.utg, bubble_size, 0, False, True, False, verbose)
+                cleaned += remove_weak_crosslink(scg.utg, weak_cross, 10, False, verbose)
+                cleaned += drop_tip(scg.utg, 0x7FFFFFFF, tip_size, True, False, verbose)
+            process_mergeable_unitigs(scg)
 
     # final coverage estimation + output
     from .align import scg_read_alignment
     from .coverage import scg_ra_arc_coverage, scg_ra_utg_coverage
 
-    _t("_")
-    ra_db = scg_read_alignment(read_db, scg, for_unzip=False)
-    _t("final_align")
-    scg_ra_utg_coverage(scg, read_db, ra_db, verbose, device=device)
-    scg_ra_arc_coverage(scg, read_db, ra_db, refine=True, verbose=verbose)
-    _t("final_cov")
+    with span("final_align"):
+        ra_db = scg_read_alignment(read_db, scg, for_unzip=False)
+    with span("final_cov"):
+        scg_ra_utg_coverage(scg, read_db, ra_db, verbose, device=device)
+        scg_ra_arc_coverage(scg, read_db, ra_db, refine=True, verbose=verbose)
 
-    log_info("syncmer graph stats after final processing", func="syncasm")
-    scg_stat(scg, sys.stderr)
-    _t("_")
-    with open(out + ".utg.final.gfa", "w") as fo:
+    with span("graph_stat"):
+        log_info("syncmer graph stats after final processing", func="syncasm")
+        scg_stat(scg, sys.stderr)
+    with span("final_gfa"), open(out + ".utg.final.gfa", "w") as fo:
         scg_consensus(read_db, scg, hoco_seq=False, save_seq=False, fo=fo, device=device)
-    _t("final_gfa")
-    _tm.pop("_", None)
-    if _timeit and _tm:
-        parts = " ".join(f"{k_}={v * 1000:.1f}ms" for k_, v in _tm.items())
-        print(f"[T::syncasm] {parts}", file=sys.stderr, flush=True)
-
-    return SyncasmResult(read_db, scm_db, scg, ra_db, timings=_tm, device=device)
+    return SyncasmResult(read_db, scm_db, scg, ra_db, device=device)

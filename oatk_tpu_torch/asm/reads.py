@@ -30,6 +30,7 @@ import numpy as np
 from ..io.fastx import SeqRecord
 from ..kernels.oracle import ReadSyncmers, hoco_compress_np, pack_hoco, syncmers_of_read_oracle
 from ..utils import log_info
+from ..utils.trace import add, once, record, span
 
 
 @dataclass
@@ -63,10 +64,6 @@ class ReadDB:
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
-
-
-def _timeit_enabled() -> bool:
-    return bool(os.environ.get("OATK_TPU_TIMEIT"))
 
 
 def _device_hoco_on() -> bool:
@@ -243,7 +240,7 @@ def _parse_pack_segment(
     caller's whole-file arrays (no per-segment allocation either).
     Returns (parse_result, [(chunk_read_idxs, B, Lp, max_out, n_cap,
     blob)]) or None.  ``tacc`` collects (parse_s, pack_s) per segment
-    (worker-side CPU wall, summed across overlapped workers)."""
+    (each worker's wall; the caller books their sums)."""
     import time as _time
 
     from .. import native
@@ -333,8 +330,6 @@ class Uploads:
         self.cuda = self.device.type == "cuda"
         self.uploads = 0  # copies issued on the copy stream
         self.pinned_bytes = 0  # pinned staging bytes held
-        self.wait_s = 0.0  # host seconds waiting for a slot
-        self.stage_s = 0.0  # host seconds copying into the slots
         if self.cuda:
             self.copy = torch.cuda.Stream(self.device)
             self.compute = torch.cuda.current_stream(self.device)
@@ -346,9 +341,9 @@ class Uploads:
 
     def put(self, blob: np.ndarray, sids: np.ndarray):
         """(blob, sids) as tensors on the device, ordered before the
-        compute stream's next kernels."""
-        import time
-
+        compute stream's next kernels.  The host's wait for the slot, its
+        copy into it and the copy queued on the copy stream are the spans
+        ``upload_wait``, ``upload_stage`` and ``upload_copy``."""
         import torch
 
         if not self.cuda:
@@ -358,29 +353,28 @@ class Uploads:
         total = pad + sids.nbytes
         i = self.next
         self.next = (i + 1) % len(self.slots)
-        t0 = time.perf_counter()
-        if self.freed[i] is not None:
-            self.freed[i].synchronize()
-        t1 = time.perf_counter()
-        slot = self.slots[i]
-        if slot is None or slot.numel() < total:
-            self.size = max(self.size, total)
-            slot = torch.empty(self.size, dtype=torch.uint8, pin_memory=True)
-            if not slot.is_pinned():
-                raise RuntimeError(f"could not pin {self.size} B of host memory for uploads")
-            self.slots[i] = slot
-            self.pinned_bytes = sum(t.numel() for t in self.slots if t is not None)
-        host = slot.numpy()
-        np.copyto(host[:nb], blob)
-        np.copyto(host[pad:total].view(np.int64), sids)
-        self.wait_s += t1 - t0
-        self.stage_s += time.perf_counter() - t1
-        with torch.cuda.stream(self.copy):
-            dev = torch.empty(total, dtype=torch.uint8, device=self.device)
-            dev.copy_(slot[:total], non_blocking=True)
-            ev = self.copy.record_event()
-        self.compute.wait_event(ev)
-        dev.record_stream(self.compute)
+        with span("upload_wait"):
+            if self.freed[i] is not None:
+                self.freed[i].synchronize()
+        with span("upload_stage"):
+            slot = self.slots[i]
+            if slot is None or slot.numel() < total:
+                self.size = max(self.size, total)
+                slot = torch.empty(self.size, dtype=torch.uint8, pin_memory=True)
+                if not slot.is_pinned():
+                    raise RuntimeError(f"could not pin {self.size} B of host memory for uploads")
+                self.slots[i] = slot
+                self.pinned_bytes = sum(t.numel() for t in self.slots if t is not None)
+            host = slot.numpy()
+            np.copyto(host[:nb], blob)
+            np.copyto(host[pad:total].view(np.int64), sids)
+        with span("upload_copy"):
+            with torch.cuda.stream(self.copy):
+                dev = torch.empty(total, dtype=torch.uint8, device=self.device)
+                dev.copy_(slot[:total], non_blocking=True)
+                ev = self.copy.record_event()
+            self.compute.wait_event(ev)
+            dev.record_stream(self.compute)
         self.uploads += 1
         self._slot = i
         return dev[:nb], dev[pad:total].view(torch.int64)
@@ -546,18 +540,62 @@ def load_and_extract(
     FASTA file with embedded FASTQ records) and under
     OATK_TPU_DEVICE_HOCO; the caller then takes the Python reader.
 
-    The ReadDB carries ``load_timings`` (seconds of the main thread's
-    phases: ``extract`` is the queueing time on the key route, of which
-    ``upload_wait`` waits for a staging slot and ``upload_stage`` copies
-    into one (on a card), ``finalize_dispatch`` and ``nsel_drain`` its
-    two steps after the loop; ``parse_work``/``pack_work`` the workers'
-    sums) and
-    ``load_counters``: ``files`` (pipelined files), ``nsel_reads`` (host
-    reads of n_sel: one per file on the key route, plus one per regrow),
-    ``chunk_reads`` (chunks whose n_sel was read inside the segment loop:
-    0 on the key route), ``regrows``, ``pinned_bytes`` (the upload ring's
-    staging memory) and ``copy_uploads`` (copies on the copy stream)."""
-    import time as _time
+    The main thread's phases are spans of the port's recorder
+    (:mod:`oatk_tpu_torch.utils.trace`), ``load.<phase>`` under
+    ``syncasm``: ``setup``, ``read_bytes``, ``cuts``, ``submit`` (the
+    segments handed to the parse workers), ``parse_wait`` (blocked on
+    them), ``extract`` (the queueing time on the key route, of which,
+    on a card, ``extract.upload_wait`` waits for a staging slot,
+    ``extract.upload_stage`` copies into one and ``extract.upload_copy``
+    queues its copy to the card, and ``extract.append`` queues the
+    extraction chain and the count's append), ``finalize_dispatch``, ``assemble_total``, ``nsel_drain``
+    and ``flats`` (the whole-run hoco arrays); the workers' summed
+    ``parse_work``/``pack_work`` are worker keys.  The
+    ReadDB carries them as ``load_timings`` by their last name (seconds;
+    the same under any caller), and ``load_counters``: ``files``
+    (pipelined files), ``nsel_reads`` (host reads of n_sel: one per file
+    on the key route, plus one per regrow), ``chunk_reads`` (chunks whose
+    n_sel was read inside the segment loop: 0 on the key route),
+    ``regrows``, ``pinned_bytes`` (the upload ring's staging memory) and
+    ``copy_uploads`` (copies on the copy stream)."""
+    import torch
+
+    from .. import native
+
+    if _device_hoco_on():
+        return None
+    if not native.available():
+        raise RuntimeError("the native host library (oatk_tpu_torch/native/*.c) failed to build")
+    _touch_cuda(torch.device(device))
+    with record() as tm:
+        db = _load_files(paths, w, s, max_data, batch_bases, device, device_count)
+    if db is not None:
+        db.load_timings = {}
+        for k_, v in tm.items():
+            names = k_.split(".")
+            if "once" not in names:
+                db.load_timings[names[-1]] = db.load_timings.get(names[-1], 0.0) + v
+    return db
+
+
+_cuda_used: set = set()
+
+
+def _touch_cuda(device) -> None:
+    """The process's first use of a CUDA device (the runtime's set-up and
+    the device's context), as the span ``once.cuda``."""
+    import torch
+
+    if device.type != "cuda" or device.index in _cuda_used:
+        return
+    with once("cuda"):
+        torch.cuda.synchronize(device)
+    _cuda_used.add(device.index)
+
+
+def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
+    """:func:`load_and_extract` in its recording: the ReadDB, or None
+    where the native parser rejects a file."""
     from concurrent.futures import ThreadPoolExecutor
 
     import torch
@@ -566,13 +604,9 @@ def load_and_extract(
     from ..index.devcount import DevCountState
     from ..io.fastx import read_source_bytes
 
-    if _device_hoco_on():
-        return None
-    if not native.available():
-        raise RuntimeError("the native host library (oatk_tpu_torch/native/*.c) failed to build")
-
-    devcount = DevCountState(device) if device_count and not max_data else None
-    uploads = Uploads(device) if devcount is not None else None
+    with span("setup"):
+        devcount = DevCountState(device) if device_count and not max_data else None
+        uploads = Uploads(device) if devcount is not None else None
     counters = dict(files=0, nsel_reads=0, chunk_reads=0, regrows=0, pinned_bytes=0,
                     copy_uploads=0)
     db = ReadDB(k=w, s=s)
@@ -585,12 +619,6 @@ def load_and_extract(
     ovf_pos_parts: list[np.ndarray] = []
     ovf_len_parts: list[np.ndarray] = []
     off_base = 0
-    _tm: dict[str, float] = {}
-
-    def _acc(key: str, t0: float) -> float:
-        t1 = _time.perf_counter()
-        _tm[key] = _tm.get(key, 0.0) + (t1 - t0)
-        return t1
 
     def extract_rows(chunks):
         """Extract one parse unit's chunks on the packed route; returns
@@ -613,7 +641,8 @@ def load_and_extract(
         for chunk, B, Lp, max_out, n_cap, blob in chunks:
             sids = np.asarray(chunk, np.int64) + csid0
             blob_d, sids_d = uploads.put(blob, sids)
-            off, n_sel = devcount.append(blob_d, B, Lp, n_cap, w, s, max_out, sids_d)
+            with span("append"):
+                off, n_sel = devcount.append(blob_d, B, Lp, n_cap, w, s, max_out, sids_d)
             uploads.done()
             pending.append((blob, B, Lp, n_cap, max_out, off, sids, n_sel))
             up += blob.nbytes
@@ -656,35 +685,34 @@ def load_and_extract(
         devcount.cap_hint = tot
 
     for i_path, path in enumerate(paths):
-        _t0 = _time.perf_counter()
-        data = read_source_bytes(path)
-        _acc("read_bytes", _t0)
+        with span("read_bytes"):
+            data = read_source_bytes(path)
 
         if max_data:
             # ---- sequential flow (-D cap honored mid-file) ----
-            res = native.parse_fastx_hoco_mt(data)
-            _t0 = _acc("parse", _t0)
+            with span("parse"):
+                res = native.parse_fastx_hoco_mt(data)
             if res is None:
                 return None
-            names, rawlen, offs, codes, rl = res[:5]
-            # the read whose raw bases reach the cap is kept
-            keep = int(np.searchsorted(np.cumsum(rawlen), max_data - total_raw) + 1)
-            keep = min(keep, len(names))
-            total_raw += int(rawlen[:keep].sum())
-            rows = extract_rows(_pack_chunks(res, keep, w, s, batch_bases))
-            _t0 = _acc("extract", _t0)
-            db.reads.extend(assemble(res, sid0, codes, rl, keep, rows))
-            h_end = int(offs[keep])
-            code_parts.append(codes[:h_end])
-            rl_parts.append(rl[:h_end])
-            off_parts.append(offs[:keep] + off_base)
-            if len(res[6]):
-                sel = res[6] < h_end  # entries of reads beyond the -D cap drop
-                ovf_pos_parts.append(res[6][sel] + off_base)
-                ovf_len_parts.append(res[7][sel])
-            off_base += h_end
-            sid0 += keep
-            _acc("assemble_total", _t0)
+            with span("extract"):
+                names, rawlen, offs, codes, rl = res[:5]
+                # the read whose raw bases reach the cap is kept
+                keep = int(np.searchsorted(np.cumsum(rawlen), max_data - total_raw) + 1)
+                keep = min(keep, len(names))
+                total_raw += int(rawlen[:keep].sum())
+                rows = extract_rows(_pack_chunks(res, keep, w, s, batch_bases))
+            with span("assemble_total"):
+                db.reads.extend(assemble(res, sid0, codes, rl, keep, rows))
+                h_end = int(offs[keep])
+                code_parts.append(codes[:h_end])
+                rl_parts.append(rl[:h_end])
+                off_parts.append(offs[:keep] + off_base)
+                if len(res[6]):
+                    sel = res[6] < h_end  # entries of reads beyond the -D cap drop
+                    ovf_pos_parts.append(res[6][sel] + off_base)
+                    ovf_len_parts.append(res[7][sel])
+                off_base += h_end
+                sid0 += keep
             if total_raw >= max_data:
                 # message as reference syncmer.c:473,539
                 log_info(
@@ -711,24 +739,23 @@ def load_and_extract(
         counters["files"] += 1
         try:
             for attempt in (0, 1):
-                _t0 = _time.perf_counter()
-                guard_fut = None
-                cuts = None
-                if n_seg > 1:
-                    if attempt == 0 and data[:1] == b">":
-                        # optimistic: split on '\n>' now; the mixed-format
-                        # guard scan runs concurrently on a worker thread
-                        cuts = native.fasta_record_cuts(data, n_seg)
-                        if cuts is not None:
-                            guard_fut = guard_pool.submit(
-                                native.find_pattern2, data, b"\n@"
-                            )
-                    else:
-                        cuts = native.segment_record_cuts(data, n_seg)
-                bounds = (
-                    [(0, len(data))] if cuts is None else list(zip(cuts[:-1], cuts[1:]))
-                )
-                _t0 = _acc("cuts", _t0)
+                with span("cuts"):
+                    guard_fut = None
+                    cuts = None
+                    if n_seg > 1:
+                        if attempt == 0 and data[:1] == b">":
+                            # optimistic: split on '\n>' now; the mixed-format
+                            # guard scan runs concurrently on a worker thread
+                            cuts = native.fasta_record_cuts(data, n_seg)
+                            if cuts is not None:
+                                guard_fut = guard_pool.submit(
+                                    native.find_pattern2, data, b"\n@"
+                                )
+                        else:
+                            cuts = native.segment_record_cuts(data, n_seg)
+                    bounds = (
+                        [(0, len(data))] if cuts is None else list(zip(cuts[:-1], cuts[1:]))
+                    )
                 seg_results = []
                 pending = []
                 failed = False
@@ -739,28 +766,28 @@ def load_and_extract(
                 n_parse = max(1, min(native.n_threads_default(), 8, len(bounds)))
                 seg_tms: list = []  # (parse_s, pack_s) per segment, worker-side
                 with ThreadPoolExecutor(n_parse) as ex:
-                    futs = [
-                        ex.submit(
-                            _parse_pack_segment, data, c0, c1, w, s, batch_bases,
-                            (codes_full[c0:c1], rl_full[c0:c1]), seg_tms,
-                        )
-                        for c0, c1 in bounds
-                    ]
+                    with span("submit"):
+                        futs = [
+                            ex.submit(
+                                _parse_pack_segment, data, c0, c1, w, s, batch_bases,
+                                (codes_full[c0:c1], rl_full[c0:c1]), seg_tms,
+                            )
+                            for c0, c1 in bounds
+                        ]
                     for (c0, _c1), fut in zip(bounds, futs):
                         # consume in order; extract as ready
-                        _t0 = _time.perf_counter()
-                        pr = fut.result()
-                        _t0 = _acc("parse_wait", _t0)
+                        with span("parse_wait"):
+                            pr = fut.result()
                         if pr is None:
                             failed = True
                             continue
                         res, chunks = pr
-                        if devcount is None:
-                            rows = extract_rows(chunks)
-                        else:
-                            rows = []
-                            queue_keys(chunks, seg_sid, pending)
-                        _acc("extract", _t0)
+                        with span("extract"):
+                            if devcount is None:
+                                rows = extract_rows(chunks)
+                            else:
+                                rows = []
+                                queue_keys(chunks, seg_sid, pending)
                         seg_sid += len(res[0])
                         seg_results.append((res, c0, rows))
                 if guard_fut is not None and guard_fut.result() >= 0:
@@ -774,70 +801,63 @@ def load_and_extract(
         finally:
             guard_pool.shutdown(wait=True)
         if seg_tms:
-            _tm["parse_work"] = _tm.get("parse_work", 0.0) + sum(p for p, _ in seg_tms)
-            _tm["pack_work"] = _tm.get("pack_work", 0.0) + sum(q for _, q in seg_tms)
+            add("parse_work", sum(p for p, _ in seg_tms))
+            add("pack_work", sum(q for _, q in seg_tms))
         if failed:
             return None
-        _t0 = _time.perf_counter()
         if pending and i_path == len(paths) - 1:
             # optimistic, as the reference (oatk_tpu/asm/reads.py:849-856):
             # the sorts queue behind the chunks while the host assembles
             # (a regrow drops them and build queues them again; a later
             # file's appends would too, so only the last file queues them)
-            devcount.start_finalize()
-            _t0 = _acc("finalize_dispatch", _t0)
-        for res, vbase, rows in seg_results:
-            names, rawlen, offs = res[0], res[1], res[2]
-            keep = len(names)
-            # the segment's reads live at [vbase, vbase+h_end) of the
-            # whole-file arrays (parse wrote in place)
-            h_end = int(offs[keep])
-            db.reads.extend(assemble(
-                res, sid0, codes_full[vbase : vbase + h_end], rl_full[vbase : vbase + h_end],
-                keep, rows,
-            ))
-            total_raw += int(rawlen.sum())
-            off_parts.append(offs[:keep] + (off_base + vbase))
-            if len(res[6]):
-                # run-length overflow entries: segment-local -> global
-                ovf_pos_parts.append(res[6] + (off_base + vbase))
-                ovf_len_parts.append(res[7])
-            sid0 += keep
-        off_base += len(data)
-        code_parts.append(codes_full)
-        rl_parts.append(rl_full)
-        _t0 = _acc("assemble_total", _t0)
+            with span("finalize_dispatch"):
+                devcount.start_finalize()
+        with span("assemble_total"):
+            for res, vbase, rows in seg_results:
+                names, rawlen, offs = res[0], res[1], res[2]
+                keep = len(names)
+                # the segment's reads live at [vbase, vbase+h_end) of the
+                # whole-file arrays (parse wrote in place)
+                h_end = int(offs[keep])
+                db.reads.extend(assemble(
+                    res, sid0, codes_full[vbase : vbase + h_end], rl_full[vbase : vbase + h_end],
+                    keep, rows,
+                ))
+                total_raw += int(rawlen.sum())
+                off_parts.append(offs[:keep] + (off_base + vbase))
+                if len(res[6]):
+                    # run-length overflow entries: segment-local -> global
+                    ovf_pos_parts.append(res[6] + (off_base + vbase))
+                    ovf_len_parts.append(res[7])
+                sid0 += keep
+            off_base += len(data)
+            code_parts.append(codes_full)
+            rl_parts.append(rl_full)
         if pending:
             # ONE read of every chunk's n_sel, after the assembly; then
             # the rare overflowed chunks regrow
-            n_sels = torch.cat([p[-1] for p in pending]).cpu().tolist()
-            counters["nsel_reads"] += 1
-            for pend, n_sel in zip(pending, n_sels):
-                devcount.n_occ += _grow_if_overflow(devcount, uploads, pend, n_sel, w, s, counters)
-            _acc("nsel_drain", _t0)
-    if code_parts:
-        db.hoco_flat = (
-            code_parts[0] if len(code_parts) == 1 else np.concatenate(code_parts)
-        )
-        db.rl_flat = rl_parts[0] if len(rl_parts) == 1 else np.concatenate(rl_parts)
-        z = np.zeros(0, np.int64)
-        db.rl_ovf_pos = np.concatenate(ovf_pos_parts) if ovf_pos_parts else z
-        db.rl_ovf_len = np.concatenate(ovf_len_parts) if ovf_len_parts else z
-        db.hoco_off = np.concatenate(
-            off_parts + [np.asarray([off_base], np.int64)]
-        ).astype(np.int64, copy=False)
+            with span("nsel_drain"):
+                n_sels = torch.cat([p[-1] for p in pending]).cpu().tolist()
+                counters["nsel_reads"] += 1
+                for pend, n_sel in zip(pending, n_sels):
+                    devcount.n_occ += _grow_if_overflow(
+                        devcount, uploads, pend, n_sel, w, s, counters)
+    with span("flats"):
+        if code_parts:
+            db.hoco_flat = (
+                code_parts[0] if len(code_parts) == 1 else np.concatenate(code_parts)
+            )
+            db.rl_flat = rl_parts[0] if len(rl_parts) == 1 else np.concatenate(rl_parts)
+            z = np.zeros(0, np.int64)
+            db.rl_ovf_pos = np.concatenate(ovf_pos_parts) if ovf_pos_parts else z
+            db.rl_ovf_len = np.concatenate(ovf_len_parts) if ovf_len_parts else z
+            db.hoco_off = np.concatenate(
+                off_parts + [np.asarray([off_base], np.int64)]
+            ).astype(np.int64, copy=False)
     if devcount is not None and devcount.n_fill > 0:
         db._devcount = devcount  # consumed by collect_syncmer_db
     db.upload_bytes = up
     if uploads is not None:
         counters.update(pinned_bytes=uploads.pinned_bytes, copy_uploads=uploads.uploads)
-        if uploads.cuda:
-            _tm.update(upload_wait=uploads.wait_s, upload_stage=uploads.stage_s)
     db.load_counters = counters
-    db.load_timings = dict(_tm)
-    if _timeit_enabled() and _tm:
-        import sys as _sys
-
-        parts = " ".join(f"{k_}={v * 1000:.1f}ms" for k_, v in _tm.items())
-        print(f"[T::load_and_extract] {parts}", file=_sys.stderr, flush=True)
     return db

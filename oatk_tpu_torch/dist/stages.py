@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.trace import span
 from . import comm
 
 
@@ -219,17 +220,10 @@ def sharded_read_alignment(
         for r in my
     ]
     if cross:
-        import os
-        import sys
-        import time
-
-        g0 = time.perf_counter()
-        p = parts[0] if parts[0] is not None else merge_aln_flats([])
-        cols = {k: comm.allgather_var(np.asarray(p[k], np.int64)) for k in _FLAT_KEYS}
-        parts = [{k: cols[k][r] for k in _FLAT_KEYS} for r in range(n_shards)]
-        if os.environ.get("OATK_TPU_TIMEIT"):
-            print(f"[T::dist] aln_gather={(time.perf_counter() - g0) * 1000:.1f}ms",
-                  file=sys.stderr, flush=True)
+        with span("gather"):
+            p = parts[0] if parts[0] is not None else merge_aln_flats([])
+            cols = {k: comm.allgather_var(np.asarray(p[k], np.int64)) for k in _FLAT_KEYS}
+            parts = [{k: cols[k][r] for k in _FLAT_KEYS} for r in range(n_shards)]
 
     ra_db = RaDB()
     ra_db.flat = merge_aln_flats(parts)

@@ -16,6 +16,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..utils.trace import span
+
 UINT64_MAX = 0xFFFFFFFFFFFFFFFF
 
 
@@ -400,53 +402,44 @@ class Asmg:
                 link += 1
 
     def finalize(self, do_cleanup: bool):
-        from ..utils import stage_timer
+        with span("finalize"):
+            with span("cleanup"):
+                if do_cleanup:
+                    self._cleanup()
+            with span("sort"):
+                self.arc_sort()
+            with span("index"):
+                import os as _os
 
-        _t = stage_timer("finalize")
-        if do_cleanup:
-            self._cleanup()
-        if _t:
-            _t("cleanup")
-        self.arc_sort()
-        if _t:
-            _t("sort")
-        import os as _os
+                fast = None
+                if (
+                    self._arcs_sorted
+                    and self._arc_symm_clean
+                    and self._arc_partner is not None
+                    and len(self._arc_partner) == len(self.av)
+                    and len(self.av)
+                    and int(self.av.max()) < 2 * self.n_vtx
+                    and _os.environ.get("OATK_TPU_GRAPH_NATIVE", "1") not in ("0", "")
+                ):
+                    # bulk-built graph: one threaded C pass builds the vertex
+                    # arc index AND the pair link ids without the ~5 full-size
+                    # NumPy temporaries (native/graph_build.c)
+                    from .. import native
 
-        fast = None
-        if (
-            self._arcs_sorted
-            and self._arc_symm_clean
-            and self._arc_partner is not None
-            and len(self._arc_partner) == len(self.av)
-            and len(self.av)
-            and int(self.av.max()) < 2 * self.n_vtx
-            and _os.environ.get("OATK_TPU_GRAPH_NATIVE", "1") not in ("0", "")
-        ):
-            # bulk-built graph: one threaded C pass builds the vertex
-            # arc index AND the pair link ids without the ~5 full-size
-            # NumPy temporaries (native/graph_build.c)
-            from .. import native
-
-            fast = native.graph_index_link(self.av, self._arc_partner, 2 * self.n_vtx)
-        if fast is not None:
-            self.idx_p, self.idx_n, self.alink = fast
-        else:
-            self.arc_index()
-        if _t:
-            _t("index")
-        added = self._arc_fix_symm()
-        if _t:
-            _t("fix_symm")
-        if added:
-            self.arc_sort()
-            self.arc_index()
-        if _t:
-            _t("resort")
-        if fast is None or added:
-            self.shrink_link_id()
-        if _t:
-            _t("shrink")
-            _t.done()
+                    fast = native.graph_index_link(self.av, self._arc_partner, 2 * self.n_vtx)
+                if fast is not None:
+                    self.idx_p, self.idx_n, self.alink = fast
+                else:
+                    self.arc_index()
+            with span("fix_symm"):
+                added = self._arc_fix_symm()
+            with span("resort"):
+                if added:
+                    self.arc_sort()
+                    self.arc_index()
+            with span("shrink"):
+                if fast is None or added:
+                    self.shrink_link_id()
 
     # ---------- accessors ----------
     def arc_range(self, v: int) -> range:

@@ -41,6 +41,7 @@ import threading
 import torch
 
 from .._u64 import as_i64, srl
+from ..utils.trace import once
 from . import cuda_build
 from .hashes import MURMUR_SEED
 
@@ -64,22 +65,23 @@ def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            build()
-            lib = ctypes.CDLL(_SO)
-            lib.syncmer_decode_launch.restype = ctypes.c_int
-            lib.syncmer_decode_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.syncmer_details_launch.restype = ctypes.c_int
-            lib.syncmer_details_launch.argtypes = (
-                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                 ctypes.c_int, ctypes.c_longlong]
-                + [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
-            )
-            lib.syncmer_details_tiles.restype = ctypes.c_longlong
-            lib.syncmer_details_tiles.argtypes = [ctypes.c_longlong, ctypes.c_int]
-            _lib = lib
+            with once("syncmer_details"):
+                build()
+                lib = ctypes.CDLL(_SO)
+                lib.syncmer_decode_launch.restype = ctypes.c_int
+                lib.syncmer_decode_launch.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ]
+                lib.syncmer_details_launch.restype = ctypes.c_int
+                lib.syncmer_details_launch.argtypes = (
+                    [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_int, ctypes.c_longlong]
+                    + [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                )
+                lib.syncmer_details_tiles.restype = ctypes.c_longlong
+                lib.syncmer_details_tiles.argtypes = [ctypes.c_longlong, ctypes.c_int]
+                _lib = lib
     return _lib
 
 

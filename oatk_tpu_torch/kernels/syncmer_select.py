@@ -31,6 +31,7 @@ import threading
 
 import torch
 
+from ..utils.trace import once
 from . import cuda_build
 
 _SRC = cuda_build.source("syncmer_select.cu")
@@ -54,21 +55,22 @@ def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            build()
-            lib = ctypes.CDLL(_SO)
-            lib.syncmer_select_launch.restype = ctypes.c_int
-            lib.syncmer_select_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-            ]
-            lib.syncmer_select_smem_bytes.restype = ctypes.c_size_t
-            lib.syncmer_select_smem_bytes.argtypes = [ctypes.c_int] * 3
-            lib.syncmer_select_occupancy.restype = ctypes.c_int
-            lib.syncmer_select_occupancy.argtypes = [
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-            ]
-            _lib = lib
+            with once("syncmer_select"):
+                build()
+                lib = ctypes.CDLL(_SO)
+                lib.syncmer_select_launch.restype = ctypes.c_int
+                lib.syncmer_select_launch.argtypes = [
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                ]
+                lib.syncmer_select_smem_bytes.restype = ctypes.c_size_t
+                lib.syncmer_select_smem_bytes.argtypes = [ctypes.c_int] * 3
+                lib.syncmer_select_occupancy.restype = ctypes.c_int
+                lib.syncmer_select_occupancy.argtypes = [
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                ]
+                _lib = lib
     return _lib
 
 

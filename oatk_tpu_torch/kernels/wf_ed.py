@@ -48,6 +48,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.trace import once
 from . import cuda_build
 
 _SRC = cuda_build.source("wf_ed.cu")
@@ -78,13 +79,14 @@ def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            build()
-            lib = ctypes.CDLL(_SO)
-            lib.wf_ed_smem_limit.restype = ctypes.c_int
-            lib.wf_ed_smem_limit.argtypes = []
-            lib.wf_ed_launch.restype = ctypes.c_int
-            lib.wf_ed_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-            _lib = lib
+            with once("wf_ed"):
+                build()
+                lib = ctypes.CDLL(_SO)
+                lib.wf_ed_smem_limit.restype = ctypes.c_int
+                lib.wf_ed_smem_limit.argtypes = []
+                lib.wf_ed_launch.restype = ctypes.c_int
+                lib.wf_ed_launch.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                _lib = lib
     return _lib
 
 

@@ -16,6 +16,8 @@ import subprocess
 
 import numpy as np
 
+from ..utils.trace import once
+
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(os.path.dirname(_SRC_DIR))
 _SO = os.path.join(_REPO, "build", "native", "liboatk_native.so")
@@ -36,177 +38,184 @@ def _load():
     global _lib, _build_failed
     if _lib is not None or _build_failed:
         return _lib
-    try:
-        src_mtime = max(os.path.getmtime(s) for s in _SRCS)
-        if not os.path.exists(_SO) or os.path.getmtime(_SO) < src_mtime:
-            cc = os.environ.get("CC", "cc")
-            os.makedirs(os.path.dirname(_SO), exist_ok=True)
-            # per-process temp name: parallel test workers may build at once
-            tmp = f"{_SO}.{os.getpid()}.tmp"
-            subprocess.run(
-                [cc, "-O3", "-shared", "-fPIC", "-pthread", *_SRCS, "-o", tmp],
-                check=True,
-                capture_output=True,
-            )
-            os.replace(tmp, _SO)
-        lib = ctypes.CDLL(_SO)
-        lib.parse_fastx_hoco.restype = ctypes.c_int64
-        lib.parse_fastx_hoco.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.pack_rows.restype = None
-        lib.pack_rows.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.pack_rows_gather.restype = None
-        lib.pack_rows_gather.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.wf_ed_core_native.restype = ctypes.c_int64
-        lib.wf_ed_core_native.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ]
-        lib.scm_overlap_mode.restype = ctypes.c_int64
-        lib.scm_overlap_mode.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.utg_consensus_emit.restype = ctypes.c_int64
-        lib.utg_consensus_emit.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64,
-        ]
-        lib.utg_consensus_emit_batch.restype = ctypes.c_int64
-        lib.utg_consensus_emit_batch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64,
-            ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-        ]
-        lib.arc_overlap_batch.restype = ctypes.c_int64
-        lib.arc_overlap_batch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int64,
-        ]
-        lib.scm_consensus_fill.restype = ctypes.c_int64
-        lib.scm_consensus_fill.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-        ]
-        lib.align_batch.restype = ctypes.c_int64
-        lib.align_batch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64,
-        ]
-        lib.find_lcs.restype = ctypes.c_int64
-        lib.find_lcs.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-        ]
-        lib.ma_blocks.restype = ctypes.c_int64
-        lib.ma_blocks.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ]
-        lib.ma_blocks_batch.restype = ctypes.c_int64
-        lib.ma_blocks_batch.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_int64,
-        ]
-        lib.ec_correct_reads.restype = ctypes.c_int64
-        lib.ec_correct_reads.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64, ctypes.c_double, ctypes.c_int64,
-            ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int64,
-        ]
-        lib.count_byte2.restype = ctypes.c_int64
-        lib.count_byte2.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint8, ctypes.c_uint8,
-        ]
-        lib.find_byte2.restype = ctypes.c_int64
-        lib.find_byte2.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint8, ctypes.c_uint8,
-        ]
-        lib.radix_sort_u64.restype = ctypes.c_int
-        lib.radix_sort_u64.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
-        lib.radix_argsort_u64.restype = ctypes.c_int
-        lib.radix_argsort_u64.argtypes = [
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
-        ]
-        lib.graph_build_arcs.restype = ctypes.c_int
-        lib.graph_build_arcs.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ]
-        lib.graph_index_link.restype = ctypes.c_int
-        lib.graph_index_link.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ]
-        _lib = lib
-    except Exception:
-        _build_failed = True
-        _lib = None
+    with once("native"):
+        try:
+            _lib = _build_and_bind()
+        except Exception:
+            _build_failed = True
+            _lib = None
     return _lib
+
+
+def _build_and_bind():
+    """Build the library if its sources are newer, load it, declare its
+    entry points."""
+    src_mtime = max(os.path.getmtime(s) for s in _SRCS)
+    if not os.path.exists(_SO) or os.path.getmtime(_SO) < src_mtime:
+        cc = os.environ.get("CC", "cc")
+        os.makedirs(os.path.dirname(_SO), exist_ok=True)
+        # per-process temp name: parallel test workers may build at once
+        tmp = f"{_SO}.{os.getpid()}.tmp"
+        subprocess.run(
+            [cc, "-O3", "-shared", "-fPIC", "-pthread", *_SRCS, "-o", tmp],
+            check=True,
+            capture_output=True,
+        )
+        os.replace(tmp, _SO)
+    lib = ctypes.CDLL(_SO)
+    lib.parse_fastx_hoco.restype = ctypes.c_int64
+    lib.parse_fastx_hoco.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.pack_rows.restype = None
+    lib.pack_rows.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.pack_rows_gather.restype = None
+    lib.pack_rows_gather.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.wf_ed_core_native.restype = ctypes.c_int64
+    lib.wf_ed_core_native.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.scm_overlap_mode.restype = ctypes.c_int64
+    lib.scm_overlap_mode.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.utg_consensus_emit.restype = ctypes.c_int64
+    lib.utg_consensus_emit.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.utg_consensus_emit_batch.restype = ctypes.c_int64
+    lib.utg_consensus_emit_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+    ]
+    lib.arc_overlap_batch.restype = ctypes.c_int64
+    lib.arc_overlap_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+        ctypes.c_int64,
+    ]
+    lib.scm_consensus_fill.restype = ctypes.c_int64
+    lib.scm_consensus_fill.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+    ]
+    lib.align_batch.restype = ctypes.c_int64
+    lib.align_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.find_lcs.restype = ctypes.c_int64
+    lib.find_lcs.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.ma_blocks.restype = ctypes.c_int64
+    lib.ma_blocks.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+    ]
+    lib.ma_blocks_batch.restype = ctypes.c_int64
+    lib.ma_blocks_batch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_int64,
+    ]
+    lib.ec_correct_reads.restype = ctypes.c_int64
+    lib.ec_correct_reads.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64, ctypes.c_double, ctypes.c_int64,
+        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int64,
+    ]
+    lib.count_byte2.restype = ctypes.c_int64
+    lib.count_byte2.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint8, ctypes.c_uint8,
+    ]
+    lib.find_byte2.restype = ctypes.c_int64
+    lib.find_byte2.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint8, ctypes.c_uint8,
+    ]
+    lib.radix_sort_u64.restype = ctypes.c_int
+    lib.radix_sort_u64.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int]
+    lib.radix_argsort_u64.restype = ctypes.c_int
+    lib.radix_argsort_u64.argtypes = [
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int,
+    ]
+    lib.graph_build_arcs.restype = ctypes.c_int
+    lib.graph_build_arcs.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ]
+    lib.graph_index_link.restype = ctypes.c_int
+    lib.graph_index_link.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+    ]
+    return lib
 
 
 def available() -> bool:
