@@ -560,6 +560,9 @@ def phase_details(device, main_shape=(2048, 16384), small=SMALL_CASES, reps=10) 
             res.update(details_timing(bt, cp, sel, B, Lp, n_cap, w, s, max_out, reps))
             res["chunk_events"] = chunk_events(blob, B, Lp, n_cap, w, s, max_out, device)
         del bt, cp, cp_ref, sel
+    rows = rows_case(device, reps)
+    ok &= rows["rows_equal"]
+    res.update(rows)
 
     rng = np.random.default_rng(20261019)
     for w, s, B, L in ((51, 11, 6, 21501), (K_MAIN, S_MAIN, 8, 12347)):  # rows of odd length
@@ -592,6 +595,71 @@ def phase_details(device, main_shape=(2048, 16384), small=SMALL_CASES, reps=10) 
     ok &= same_rows and same_ascii
     res.update(ok=ok, dec_err=dec_err, max_abs_err=det_err)
     return res
+
+
+def unit_stream(rng, n_pos: int, w: int, n_rate: float):
+    """A unit of the loader's key route (``asm/reads.py:_pack_stream``,
+    rows ordered by length bucket as ``_load_files`` orders them): reads
+    of 12,000 +- 2,400 hoco bases (the wgs-1G cell's 15 +- 3 kbp reads)
+    up to ``n_pos`` positions, Ns at ``n_rate``.  Returns (stream, row_off,
+    hl, buckets, n_rows) as numpy arrays and a list."""
+    import numpy as np
+
+    from oatk_tpu_torch.asm.reads import _pack_stream
+
+    lens = np.clip(rng.normal(12000, 2400, n_pos // 12000 + 1).astype(np.int64), w + 4, None)
+    lens = lens[: int(np.searchsorted(np.cumsum(lens), n_pos)) + 1]
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    codes = rng.integers(0, 4, int(offs[-1])).astype(np.uint8)
+    isn = np.flatnonzero(rng.random(len(codes)) < n_rate).astype(np.int64)
+    sg = _pack_stream((None, None, offs, codes, None, isn), w)
+    order = np.argsort(sg.lp, kind="stable")
+    inv = np.empty(len(lens), np.int64)
+    inv[order] = np.arange(len(lens))
+    n_rows = (inv[sg.n_rows >> 32] << 32) | (sg.n_rows & 0xFFFFFFFF)
+    lp = sg.lp[order]
+    edges = np.flatnonzero(np.diff(lp)) + 1
+    buckets = [(int(a), int(b - a), int(lp[a]))
+               for a, b in zip(np.append(0, edges), np.append(edges, len(lens)))]
+    return sg.stream, sg.row_off[order], sg.hl[order], buckets, n_rows
+
+
+def rows_case(device, reps: int, n_pos: int = 32 << 20) -> dict:
+    """K3d as the key route's row gather (``decode_rows``) at a unit's
+    shape (``unit_stream``, k=1001): the kernel against its plain version
+    on the same card tensors, exactly; its median time by CUDA events and
+    its device time by launch beside its bound, the bytes it must move
+    (the stream, 12 B of row table per row, 8 B per N, and every output
+    byte once) over HBM_BPS."""
+    import numpy as np
+    import torch
+
+    from oatk_tpu_torch.kernels import syncmer_details as SD
+
+    w = K_MAIN
+    stream, row_off, hl, buckets, n_rows = unit_stream(np.random.default_rng(20261020), n_pos, w, 1e-4)
+    st, ro, h, nr = (torch.from_numpy(a).to(device) for a in (stream, row_off, hl, n_rows))
+    got = SD.decode_rows(st, ro, h, buckets, nr, w)
+    torch.cuda.synchronize()
+    want = SD.decode_rows_plain(st, ro, h, buckets, nr, w)
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    del want
+    ms = median_ms(lambda: SD.decode_rows(st, ro, h, buckets, nr, w), reps)
+    by = {}
+    for name, us in profile_device(lambda: [SD.decode_rows(st, ro, h, buckets, nr, w) for _ in range(5)]):
+        by[kernel_name(name)] = by.get(kernel_name(name), 0.0) + us / 5
+    us = sum(v for k, v in by.items() if "blob_" in k)
+    out_bytes = sum(B * (1 + Lp + w + 2) for _r, B, Lp in buckets)
+    nbytes = len(stream) + 12 * len(hl) + 8 * len(n_rows) + out_bytes
+    bound = 1000 * nbytes / HBM_BPS
+    log(f"[details] row gather (decode_rows) at a unit: {len(hl)} reads, {int(hl.sum())} hoco "
+        f"positions in {len(buckets)} buckets, {len(n_rows)} Ns, w={w}: equal={same}; kernel "
+        f"{ms:.4f} ms (median, CUDA events), {us:.1f} us device ("
+        + "; ".join(f"{k} {v:.1f}" for k, v in sorted(by.items()))
+        + f"); bound {bound:.4f} ms by bytes ({nbytes} B), {100 * bound / ms:.1f}% of it by "
+        f"events, {100000 * bound / us:.1f}% by device time")
+    return dict(rows_equal=same, rows_ms=ms, rows_us=us, rows_bound_ms=bound, rows_reads=len(hl),
+                rows_buckets=len(buckets))
 
 
 # 32-bit operations of the details' own work, for K4's bound: the
@@ -1198,17 +1266,19 @@ def reset_counts() -> None:
     from oatk_tpu_torch.kernels import syncmer_details as SD
     from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
-    syncmer_select.launches = SD.decode_blob.launches = 0
+    syncmer_select.launches = SD.decode_blob.launches = SD.decode_rows.launches = 0
     SD.selected_details.launches = SD.selected_keys.launches = 0
 
 
 def read_counts() -> dict:
     """The launch counts of the selection, decode and details kernels
-    (``details``: K4 on either route; ``keys``: on the key route)."""
+    (``decode``: K3d on a blob or as the key route's row gather;
+    ``details``: K4 on either route; ``keys``: on the key route)."""
     from oatk_tpu_torch.kernels import syncmer_details as SD
     from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
 
-    return dict(launches=syncmer_select.launches, decode=SD.decode_blob.launches,
+    return dict(launches=syncmer_select.launches,
+                decode=SD.decode_blob.launches + SD.decode_rows.launches,
                 details=SD.selected_details.launches + SD.selected_keys.launches,
                 keys=SD.selected_keys.launches)
 
@@ -1316,7 +1386,7 @@ def phase_full(work: str, parity: dict) -> dict:
     log(f"[full] [T::syncasm] {stages}")
     log("[full] load stage split: " + " ".join(f"load.{k}={v * 1000:.1f}ms" for k, v in lt.items()))
     log(f"[full] syncmer_select launches={cnt['launches']} decode launches={cnt['decode']} "
-        f"details launches={cnt['details']} (key route {cnt['keys']}) over {n_chunks} chunks "
+        f"details launches={cnt['details']} (key route {cnt['keys']}) over {n_chunks} appends "
         f"max_memory_allocated={peak} B")
     log(f"[full] torch.nonzero calls: {nz['load']} in the loader, {nz['n']} in the whole run "
         f"(the counter's self-check on the plain version: {probe['n']}); chunk_keys calls: "
@@ -1324,12 +1394,17 @@ def phase_full(work: str, parity: dict) -> dict:
     log(f"[full] .utg.final.gfa: S={summ['S']} L={summ['L']} seg_bp={summ['seg_bp']} "
         f"sha256={summ['sha256']}")
     one_read = (lc.get("files") == 1 and lc.get("nsel_reads", 0) - lc.get("regrows", 0) == 1
-                and lc.get("chunk_reads") == 0 and lc.get("copy_uploads") == n_chunks)
+                and lc.get("chunk_reads") == 0
+                and lc.get("copy_uploads") == lc.get("units", -1) + lc.get("regrows", 0)
+                and lc.get("appends") == n_chunks
+                and (lc.get("host_rows") == 0) == (lc.get("regrows") == 0))
     log(f"[full] loader counters: n_sel reads per file {lc.get('nsel_reads')}/{lc.get('files')} "
         f"(per chunk {lc.get('chunk_reads')}), regrows {lc.get('regrows')}, pinned bytes "
         f"{lc.get('pinned_bytes')} at 110 Mbp and {lc10.get('pinned_bytes')} at 9.9 Mbp, "
-        f"copy-stream uploads {lc.get('copy_uploads')} over {n_chunks} chunks "
-        f"(9.9 Mbp: {lc10.get('copy_uploads')}); one read per file: {one_read}")
+        f"copy-stream uploads {lc.get('copy_uploads')} for {lc.get('units')} units and "
+        f"{n_chunks} appends, rows laid out on the card {lc.get('device_rows')}, on the host "
+        f"{lc.get('host_rows')} (9.9 Mbp: {lc10.get('copy_uploads')} uploads); one read per file: "
+        f"{one_read}")
     prof_out = os.path.join(work, "full_110mbp_prof")
     spans = profile_spans(lambda: run_syncasm(fa, K_MAIN, S_MAIN, 30, prof_out, "cuda", ec=True, unzip=3))
     ev = [(name, t1 - t0) for name, t0, t1 in spans]

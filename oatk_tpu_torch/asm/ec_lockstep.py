@@ -18,12 +18,12 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 import threading
 from typing import NamedTuple
 
 import numpy as np
 
+from ..kernels import cuda_build
 from ..utils.trace import once
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,25 +39,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int64
 
 
 def build() -> str:
-    """Compile the source if the library is missing or older than it;
-    returns the compiler's output (empty when nothing was built), and
-    raises RuntimeError with it when the build fails."""
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return ""
-    os.makedirs(os.path.dirname(_SO), exist_ok=True)
-    # per-process temp name: parallel test workers may build at once
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    cmd = [os.environ.get("CC", "cc"), "-O3", "-shared", "-fPIC", "-pthread", _SRC, "-o", tmp, "-lm"]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"ec_lockstep: cannot run the C compiler {cmd[0]!r}: {e}") from e
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"ec_lockstep: {' '.join(cmd)} failed ({res.returncode}):\n{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, _SO)
-    return res.stdout + res.stderr
+    """Compile the source if the library is missing or older than it
+    (:func:`..kernels.cuda_build.build_host`)."""
+    return cuda_build.build_host(_SRC, _SO)
 
 
 def _load():

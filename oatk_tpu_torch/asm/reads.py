@@ -6,15 +6,18 @@ positions, row bucketing) are carried unchanged.  Every device route
 selects through the closed-syncmer kernel (:mod:`..kernels.syncmer_select`):
 
 - :func:`load_and_extract`, the fused native-parse loader.  Uncapped,
-  worker threads parse+pack segment i+1 while the main thread uploads
-  segment i's blobs and extracts them
-  (:func:`oatk_tpu_torch.kernels.syncmer.extract_hoco_fused_keys`,
-  whose last kernel writes the keys into the device count buffers), or,
-  with ``device_count=False``, each chunk's selected rows come back to
-  the host for the host sort
-  (:func:`oatk_tpu_torch.kernels.syncmer.extract_hoco_fused`).  Under
-  ``-D`` (``max_data``) one sequential flow parses each whole file, caps
-  it and counts on the host.
+  worker threads parse and 2-bit pack the segments ahead of the main
+  thread.  On the key route (device counting) each segment's reads are
+  one stream (:func:`_pack_stream`); the main thread uploads runs of
+  whole segments as one unit, K3d lays out the rows of every length
+  bucket on the card (:func:`oatk_tpu_torch.kernels.syncmer_details.
+  decode_rows`) and K1 -> K4 write the keys into the device count
+  buffers (:func:`oatk_tpu_torch.kernels.syncmer.select_keys`).  With
+  ``device_count=False`` each segment's chunks are padded blobs
+  (:func:`_pack_chunks`) whose selected rows come back to the host for
+  the host sort (:func:`oatk_tpu_torch.kernels.syncmer.extract_hoco_fused`).
+  Under ``-D`` (``max_data``) one sequential flow parses each whole
+  file, caps it and counts on the host.
 - :func:`extract_all_syncmers`, the Python reader's route (host hoco +
   2-bit pack into the loader's blob layout, or raw ASCII with the hoco
   phase on the device under ``OATK_TPU_DEVICE_HOCO``), host counting;
@@ -24,6 +27,7 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass, field
+from functools import partial
 
 import numpy as np
 
@@ -230,15 +234,17 @@ def chunk_blob(B: int, Lp: int, n_pos, n_cap: int | None = None):
 
 def _parse_pack_segment(
     data: bytes, c0: int, c1: int, w: int, s: int, batch_bases: int, out3=None,
-    tacc: list | None = None,
+    tacc: list | None = None, stream: bool = False,
 ):
-    """Worker: native parse+hoco of one byte range [c0, c1), then 2-bit
-    pack all its chunks into upload blobs.  Runs off the main thread
-    (the C parse releases the GIL) so segment i+1 parses while segment
-    i's blobs upload/compute on the device.  The range is parsed in
-    place — no segment slice copy — and with ``out3`` straight into the
-    caller's whole-file arrays (no per-segment allocation either).
-    Returns (parse_result, [(chunk_read_idxs, B, Lp, max_out, n_cap,
+    """Worker: native parse+hoco of one byte range [c0, c1), then the
+    2-bit pack of its reads: with ``stream`` (the key route) one
+    contiguous stream (:func:`_pack_stream`), else every chunk's upload
+    blob (:func:`_pack_chunks`).  Runs off the main thread (the C parse
+    and pack release the GIL) so segment i+1 parses while segment i
+    uploads/computes on the device.  The range is parsed in place -- no
+    segment slice copy -- and with ``out3`` straight into the caller's
+    whole-file arrays (no per-segment allocation either).  Returns
+    (parse_result, stream or [(chunk_read_idxs, B, Lp, max_out, n_cap,
     blob)]) or None.  ``tacc`` collects (parse_s, pack_s) per segment
     (each worker's wall; the caller books their sums)."""
     import time as _time
@@ -250,10 +256,18 @@ def _parse_pack_segment(
     _t_parse = _time.perf_counter() - _t0
     if res is None:
         return None
-    chunks = _pack_chunks(res, len(res[0]), w, s, batch_bases)
+    packed = _pack_stream(res, w) if stream else _pack_chunks(res, len(res[0]), w, s, batch_bases)
     if tacc is not None:
         tacc.append((_t_parse, _time.perf_counter() - _t0 - _t_parse))
-    return res, chunks
+    return res, packed
+
+
+def _pack_stream(res, w: int):
+    """A parse result's reads as the key route's 2-bit stream, row table
+    and N entries (:func:`.stream_pack.pack_stream`, one native call)."""
+    from .stream_pack import pack_stream
+
+    return pack_stream(res[2], res[3], res[5], w)
 
 
 def _chunk_n_positions(isn_idx, st, en, Lp):
@@ -295,33 +309,36 @@ def extract_chunk(blob: np.ndarray, B, Lp, n_cap, w, s, max_out, device):
 # reuse each slot several times on a small input)
 _UPLOAD_SLOTS = 4
 
+# hoco positions a unit of the key route gathers before its upload (the
+# parse segments that reach it, whole; tests shrink this)
+_UNIT_POSITIONS = 32 << 20
+
 
 class Uploads:
-    """Host-to-device copies of the key route's chunks (blob and read
-    ids), queued without waiting for the card.
+    """Host-to-device copies of the key route's units (a stream and its
+    tables) and regrown chunks (blob and read ids), queued without
+    waiting for the card.
 
-    On a CUDA device each chunk is staged in one of ``_UPLOAD_SLOTS``
+    On a CUDA device each upload is staged in one of ``_UPLOAD_SLOTS``
     pinned host buffers, sized to the largest upload seen, so the pinned
     memory is bounded whatever the input's size.  The slot's copy to the
     card runs with ``non_blocking=True`` on a dedicated copy stream into
     memory allocated on that stream; an event recorded there makes the
     compute stream wait before the decode, and ``record_stream`` keeps
-    the caching allocator from handing the device blob out again before
+    the caching allocator from handing the device buffer out again before
     the compute stream's queued kernels have read it.  :meth:`done`
-    records an event on the compute stream behind the chunk's kernels;
+    records an event on the compute stream behind the upload's kernels;
     before the host rewrites a slot it waits on the event of the slot's
-    previous chunk -- the loop's only host wait -- so the host runs at
-    most ``_UPLOAD_SLOTS`` chunks ahead of the card and at most that many
-    device blobs are in flight.
+    previous upload -- the loop's only host wait -- so the host runs at
+    most ``_UPLOAD_SLOTS`` uploads ahead of the card and at most that
+    many device buffers are in flight.
 
-    Staging copies the numpy blob into the slot on the main thread
-    rather than having the parse workers pack into pinned blobs: a chunk
-    that overflowed is extracted again from its host blob after the
-    drain, so every blob outlives the segment loop, and pinned blobs
-    would then grow with the input.
+    Staging copies the workers' numpy arrays into the slot on the main
+    thread, so no pinned memory is held per segment.
 
-    On the CPU the blob and ids are used in place: no pinning, no
-    streams.  A failure to pin or to make the stream raises."""
+    On the CPU the arrays are used in place (a list of arrays is
+    concatenated): no pinning, no streams.  A failure to pin or to make
+    the stream raises."""
 
     def __init__(self, device):
         import torch
@@ -339,18 +356,22 @@ class Uploads:
             self.size = 0
             self._slot = 0
 
-    def put(self, blob: np.ndarray, sids: np.ndarray):
-        """(blob, sids) as tensors on the device, ordered before the
-        compute stream's next kernels.  The host's wait for the slot, its
+    def put(self, *fields):
+        """Each field -- a numpy array, or a list of arrays of one dtype laid
+        end to end -- as a 1-D tensor of its dtype on the device, ordered
+        before the compute stream's next kernels; on a card each starts
+        16-byte aligned in one buffer.  The host's wait for the slot, its
         copy into it and the copy queued on the copy stream are the spans
         ``upload_wait``, ``upload_stage`` and ``upload_copy``."""
         import torch
 
+        parts = [f if isinstance(f, list) else [f] for f in fields]
         if not self.cuda:
-            return torch.from_numpy(blob), torch.from_numpy(sids)
-        nb = blob.nbytes
-        pad = _round_up(nb, 8)
-        total = pad + sids.nbytes
+            return tuple(torch.from_numpy(p[0] if len(p) == 1 else np.concatenate(p)) for p in parts)
+        offs, total = [], 0
+        for p in parts:
+            offs.append(total)
+            total += _round_up(sum(a.nbytes for a in p), 16)
         i = self.next
         self.next = (i + 1) % len(self.slots)
         with span("upload_wait"):
@@ -366,8 +387,9 @@ class Uploads:
                 self.slots[i] = slot
                 self.pinned_bytes = sum(t.numel() for t in self.slots if t is not None)
             host = slot.numpy()
-            np.copyto(host[:nb], blob)
-            np.copyto(host[pad:total].view(np.int64), sids)
+            for p, o in zip(parts, offs):  # one copy call per field
+                n = sum(a.nbytes for a in p)
+                np.concatenate([a.reshape(-1).view(np.uint8) for a in p], out=host[o : o + n])
         with span("upload_copy"):
             with torch.cuda.stream(self.copy):
                 dev = torch.empty(total, dtype=torch.uint8, device=self.device)
@@ -377,7 +399,9 @@ class Uploads:
             dev.record_stream(self.compute)
         self.uploads += 1
         self._slot = i
-        return dev[:nb], dev[pad:total].view(torch.int64)
+        return tuple(
+            dev[o : o + sum(a.nbytes for a in p)].view(torch.from_numpy(p[0][:0]).dtype)
+            for p, o in zip(parts, offs))
 
     def done(self):
         """Mark the end of the kernels that read the last upload."""
@@ -385,24 +409,60 @@ class Uploads:
             self.freed[self._slot] = self.compute.record_event()
 
 
-def _grow_if_overflow(devcount, uploads, pend, n_sel: int, w: int, s: int, counters) -> int:
-    """Regrow one chunk after the drain, as the reference's
+@dataclass
+class _Pending:
+    """One key-route append, kept for the drain: its rows (B of them,
+    padded to Lp, read ids ``sids``), its lanes [off, off+max_out), its
+    n_sel tensor, and ``make_blob`` to lay the rows out again as the
+    packed route's blob, (blob, n_cap), should they overflow."""
+
+    make_blob: object
+    B: int
+    Lp: int
+    max_out: int
+    off: int
+    sids: np.ndarray
+    n_sel: object
+
+
+def _grow_if_overflow(devcount, uploads, pend: _Pending, n_sel: int, w: int, s: int,
+                      counters) -> int:
+    """Regrow one append after the drain, as the reference's
     ``_grow_if_overflow`` (``oatk_tpu/asm/reads.py:445``): while its
-    exact n_sel exceeds its capacity, invalidate its lanes and append the
-    same host blob again at a new offset with ``max_out = n_sel + 1024``
-    rounded up (the finalize's global sort makes the append order
-    irrelevant).  Returns n_sel."""
-    blob, B, Lp, n_cap, max_out, off, sids, _n = pend
+    exact n_sel exceeds its capacity, invalidate its lanes and append its
+    rows again, packed on the host into a blob (``pend.make_blob``), at a
+    new offset with ``max_out = n_sel + 1024`` rounded up (the finalize's
+    global sort makes the append order irrelevant).  Returns n_sel."""
+    max_out, off, blob = pend.max_out, pend.off, None
     while n_sel > max_out:
         devcount.invalidate(off, max_out)
         max_out = _round_up(n_sel + 1024, 1024)
-        blob_d, sids_d = uploads.put(blob, sids)
-        off, n_d = devcount.append(blob_d, B, Lp, n_cap, w, s, max_out, sids_d)
+        if blob is None:
+            blob, n_cap = pend.make_blob()
+            counters["host_rows"] += pend.B
+        blob_d, sids_d = uploads.put(blob, pend.sids)
+        off, n_d = devcount.append(blob_d, pend.B, pend.Lp, n_cap, w, s, max_out, sids_d)
         uploads.done()
         n_sel = int(n_d[0])
         counters["regrows"] += 1
         counters["nsel_reads"] += 1
     return n_sel
+
+
+def _rows_blob(codes: np.ndarray, st: np.ndarray, hl: np.ndarray, n_rows: np.ndarray,
+               row0: int, Lp: int):
+    """The packed route's blob of rows row0 .. row0+len(st)-1 of a unit,
+    packed again from the whole-file codes (reads at ``st``, ``hl`` long;
+    the unit's N entries ``r<<32 | p``): (blob, n_cap)."""
+    from .. import native
+
+    B = len(st)
+    r, p = n_rows >> 32, n_rows & 0xFFFFFFFF
+    hit = (r >= row0) & (r < row0 + B)
+    blob, packed, hl_v, n_cap = chunk_blob(B, Lp, (r[hit] - row0) * Lp + p[hit])
+    native.pack_rows_gather(codes, st, st + hl, Lp // 4, out=packed)
+    hl_v[:] = hl
+    return blob, n_cap
 
 
 def extract_all_syncmers(
@@ -518,19 +578,23 @@ def load_and_extract(
 
     Uncapped, each file splits at record boundaries into ~``_SEG_BYTES``
     segments; worker threads parse and pack them while the main thread
-    extracts the previous segment's chunks on ``device``.  With
+    extracts the segments before them on ``device``.  With
     ``device_count`` (the key route) the keys go to a
     :class:`~oatk_tpu_torch.index.devcount.DevCountState`, which the
     returned ReadDB carries as ``_devcount`` for ``collect_syncmer_db``,
     and the main thread only queues work, as the reference's loader does
-    (``oatk_tpu/asm/reads.py:787-895``): per chunk the upload
-    (:class:`Uploads`), K3d -> K1 -> K4 and the append, with no host read
-    in the segment loop; after it the finalize's sorts
+    (``oatk_tpu/asm/reads.py:787-895``): per unit of whole segments
+    (about ``_UNIT_POSITIONS`` hoco positions; the last unit of a file
+    may be smaller) one upload of their streams and row table
+    (:class:`Uploads`), one K3d over every length bucket, and per bucket
+    K1 -> K4 and the append, with no host read in the segment loop; after
+    it the finalize's sorts
     (:meth:`~oatk_tpu_torch.index.devcount.DevCountState.start_finalize`),
-    the host assembly of the reads, then ONE read of every chunk's n_sel
-    and the regrow of any chunk that overflowed
-    (:func:`_grow_if_overflow`).  Otherwise each chunk's selected rows are
-    fetched and ``collect_syncmer_db`` sorts on the host.
+    the host assembly of the reads, then ONE read of every append's n_sel
+    and the regrow of any that overflowed (:func:`_grow_if_overflow`,
+    its rows packed again from the whole-file codes).  Otherwise each
+    chunk's selected rows are fetched and ``collect_syncmer_db`` sorts on
+    the host.
 
     ``max_data`` (-D) runs the sequential flow: a whole-file parse, the
     reads up to and including the one whose raw bases reach the cap,
@@ -548,16 +612,21 @@ def load_and_extract(
     on a card, ``extract.upload_wait`` waits for a staging slot,
     ``extract.upload_stage`` copies into one and ``extract.upload_copy``
     queues its copy to the card, and ``extract.append`` queues the
-    extraction chain and the count's append), ``finalize_dispatch``, ``assemble_total``, ``nsel_drain``
-    and ``flats`` (the whole-run hoco arrays); the workers' summed
-    ``parse_work``/``pack_work`` are worker keys.  The
-    ReadDB carries them as ``load_timings`` by their last name (seconds;
-    the same under any caller), and ``load_counters``: ``files``
+    extraction chain and the count's appends), ``finalize_dispatch``,
+    ``assemble_total``, ``nsel_drain`` and ``flats`` (the whole-run hoco
+    arrays); the workers' summed ``parse_work``/``pack_work`` are worker
+    keys.  The ReadDB carries them as ``load_timings`` by their last name
+    (seconds; the same under any caller), and ``load_counters``: ``files``
     (pipelined files), ``nsel_reads`` (host reads of n_sel: one per file
     on the key route, plus one per regrow), ``chunk_reads`` (chunks whose
     n_sel was read inside the segment loop: 0 on the key route),
-    ``regrows``, ``pinned_bytes`` (the upload ring's staging memory) and
-    ``copy_uploads`` (copies on the copy stream)."""
+    ``regrows``, ``pinned_bytes`` (the upload ring's staging memory),
+    ``copy_uploads`` (copies on the copy stream: units and regrows, on a
+    card), ``units`` (units queued), ``appends`` (K1/K4 appends to the
+    count, regrows included), ``device_rows`` (rows K3d laid out from a
+    unit's stream) and ``host_rows`` (rows packed on the host into padded
+    blobs: every row on the packed route, a regrow's rows on the key
+    route)."""
     import torch
 
     from .. import native
@@ -603,12 +672,13 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
     from .. import native
     from ..index.devcount import DevCountState
     from ..io.fastx import read_source_bytes
+    from ..kernels.syncmer_details import decode_rows
 
     with span("setup"):
         devcount = DevCountState(device) if device_count and not max_data else None
         uploads = Uploads(device) if devcount is not None else None
     counters = dict(files=0, nsel_reads=0, chunk_reads=0, regrows=0, pinned_bytes=0,
-                    copy_uploads=0)
+                    copy_uploads=0, units=0, appends=0, device_rows=0, host_rows=0)
     db = ReadDB(k=w, s=s)
     total_raw = 0
     up = 0
@@ -630,22 +700,54 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
             up += blob.nbytes
             counters["chunk_reads"] += 1
             counters["nsel_reads"] += 1
+            counters["host_rows"] += len(chunk)
             rows.append((chunk, _host_rows(packed, n_sel, B, Lp)))
         return rows
 
-    def queue_keys(chunks, csid0, pending):
-        """Queue one parse unit's chunks on the key route: upload, the
-        extraction chain, the append; each chunk's (host blob, B, Lp,
-        n_cap, max_out, offset, sids, n_sel tensor) goes to ``pending``."""
+    def queue_unit(segs, codes, pending):
+        """Queue one unit on the key route: ``segs`` are consecutive parse
+        segments, each (its SegStream, its first read id, its reads'
+        offsets in ``codes``, the whole-file hoco array).  One upload of
+        their streams and the row table, ordered by length bucket (stably,
+        so read ids ascend within a bucket); one K3d over every bucket; per
+        bucket K1, K4 and the count's append, a :class:`_Pending` each."""
         nonlocal up
-        for chunk, B, Lp, max_out, n_cap, blob in chunks:
-            sids = np.asarray(chunk, np.int64) + csid0
-            blob_d, sids_d = uploads.put(blob, sids)
-            with span("append"):
-                off, n_sel = devcount.append(blob_d, B, Lp, n_cap, w, s, max_out, sids_d)
-            uploads.done()
-            pending.append((blob, B, Lp, n_cap, max_out, off, sids, n_sel))
-            up += blob.nbytes
+        n = [len(sg.hl) for sg, _sid, _offs in segs]
+        R = sum(n)
+        if R == 0:
+            return
+        sbase = np.cumsum([0] + [len(sg.stream) for sg, _sid, _offs in segs[:-1]])
+        rbase = np.cumsum([0] + n[:-1])
+        lp = np.concatenate([sg.lp for sg, _sid, _offs in segs])
+        order = np.argsort(lp, kind="stable")
+        row_off = np.concatenate([sg.row_off + b for (sg, _s, _o), b in zip(segs, sbase)])[order]
+        hl = np.concatenate([sg.hl for sg, _sid, _offs in segs])[order]
+        sids = np.concatenate([np.arange(sid, sid + k, dtype=np.int64)
+                               for (_sg, sid, _o), k in zip(segs, n)])[order]
+        st = np.concatenate([offs[:-1] for _sg, _sid, offs in segs])[order]
+        n_rows = np.concatenate([sg.n_rows + (b << 32) for (sg, _s, _o), b in zip(segs, rbase)])
+        if len(n_rows):  # read index -> its row in the bucket order
+            inv = np.empty(R, np.int64)
+            inv[order] = np.arange(R)
+            n_rows = (inv[n_rows >> 32] << 32) | (n_rows & 0xFFFFFFFF)
+        lp = lp[order]
+        edges = np.flatnonzero(np.diff(lp)) + 1
+        buckets = [(int(r0), int(r1 - r0), int(lp[r0]))
+                   for r0, r1 in zip(np.append(0, edges), np.append(edges, R))]
+        fields = ([sg.stream for sg, _sid, _offs in segs], row_off, sids, hl, n_rows)
+        stream_d, row_off_d, sids_d, hl_d, n_rows_d = uploads.put(*fields)
+        with span("append"):
+            cps = decode_rows(stream_d, row_off_d, hl_d, buckets, n_rows_d, w)
+            for (r0, B, Lp), cp in zip(buckets, cps):
+                max_out = _capacity(B, Lp, w, s)
+                off, n_sel = devcount.append_rows(cp, w, s, max_out, sids_d[r0 : r0 + B])
+                pending.append(_Pending(
+                    partial(_rows_blob, codes, st[r0 : r0 + B], hl[r0 : r0 + B], n_rows, r0, Lp),
+                    B, Lp, max_out, off, sids[r0 : r0 + B], n_sel))
+        uploads.done()
+        counters["units"] += 1
+        counters["device_rows"] += R
+        up += sum(a.nbytes for f in fields for a in (f if isinstance(f, list) else [f]))
 
     def assemble(res, sid_base, codes, rl, keep, rows):
         """ReadSyncmers for the first ``keep`` reads of one parse unit.
@@ -758,6 +860,8 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
                     )
                 seg_results = []
                 pending = []
+                unit: list = []  # key route: segments not yet queued
+                unit_pos = 0
                 failed = False
                 # key lanes appended during a discarded attempt must be
                 # masked out of the device count buffers
@@ -770,7 +874,7 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
                         futs = [
                             ex.submit(
                                 _parse_pack_segment, data, c0, c1, w, s, batch_bases,
-                                (codes_full[c0:c1], rl_full[c0:c1]), seg_tms,
+                                (codes_full[c0:c1], rl_full[c0:c1]), seg_tms, devcount is not None,
                             )
                             for c0, c1 in bounds
                         ]
@@ -781,15 +885,25 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
                         if pr is None:
                             failed = True
                             continue
-                        res, chunks = pr
-                        with span("extract"):
-                            if devcount is None:
-                                rows = extract_rows(chunks)
-                            else:
-                                rows = []
-                                queue_keys(chunks, seg_sid, pending)
+                        res, packed = pr
+                        rows = []
+                        if devcount is None:
+                            with span("extract"):
+                                rows = extract_rows(packed)
+                        elif not failed:
+                            # whole segments gather into a unit of about
+                            # _UNIT_POSITIONS hoco positions
+                            unit.append((packed, seg_sid, res[2] + c0))
+                            unit_pos += int(res[2][-1])
+                            if unit_pos >= _UNIT_POSITIONS:
+                                with span("extract"):
+                                    queue_unit(unit, codes_full, pending)
+                                unit, unit_pos = [], 0
                         seg_sid += len(res[0])
                         seg_results.append((res, c0, rows))
+                    if unit and not failed:
+                        with span("extract"):
+                            queue_unit(unit, codes_full, pending)
                 if guard_fut is not None and guard_fut.result() >= 0:
                     # rare mixed-format file: the optimistic '\n>' split
                     # was unsafe; drop this attempt (its pending n_sel
@@ -837,7 +951,7 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
             # ONE read of every chunk's n_sel, after the assembly; then
             # the rare overflowed chunks regrow
             with span("nsel_drain"):
-                n_sels = torch.cat([p[-1] for p in pending]).cpu().tolist()
+                n_sels = torch.cat([p.n_sel for p in pending]).cpu().tolist()
                 counters["nsel_reads"] += 1
                 for pend, n_sel in zip(pending, n_sels):
                     devcount.n_occ += _grow_if_overflow(
@@ -858,6 +972,7 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
         db._devcount = devcount  # consumed by collect_syncmer_db
     db.upload_bytes = up
     if uploads is not None:
-        counters.update(pinned_bytes=uploads.pinned_bytes, copy_uploads=uploads.uploads)
+        counters.update(pinned_bytes=uploads.pinned_bytes, copy_uploads=uploads.uploads,
+                        appends=devcount.n_append)
     db.load_counters = counters
     return db

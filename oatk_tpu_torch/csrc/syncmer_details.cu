@@ -1,6 +1,6 @@
 // The syncmer extraction chain around the selection kernel on NVIDIA Hopper
-// (sm_90a), CUDA C++: the upload blob's decode in front of it (K3d) and the
-// ordered compaction with the per-selected details behind it (K4).
+// (sm_90a), CUDA C++: the decode of 2-bit packed reads in front of it (K3d)
+// and the ordered compaction with the per-selected details behind it (K4).
 //
 // Counterparts in the JAX package, where both are parts of one XLA program
 // per chunk (oatk_tpu/kernels/syncmer.py:extract_hoco_fused_pallas):
@@ -17,26 +17,38 @@
 // gather and the packed-byte funnel shift of the reverse complement (the
 // kernel reads each window's codes and builds both strands from them).
 //
-// K3d, two launches (the N scatter must follow the decode):
-//   blob_decode_kernel     blob [B*Lp/4 | hl i32[B] | n_pos i32[n_cap]] ->
-//                          codes_padded uint8 [B, Wd], Wd = 1 + Lp + w + 2:
-//                          column 0 and every column from 1 + hl[b] on hold
-//                          5, column 1 + p < 1 + hl[b] the 2-bit base p
-//                          (base 4j in bits 7-6 of packed byte j); a row
-//                          of blocks per row, one thread per 16-byte chunk
-//                          of the output that starts in the row.  A thread
-//                          tests for a row end once per chunk and splits
-//                          the chunk where it crosses one; per row segment
-//                          it reads hl once and takes its (at most 16)
-//                          bases from two aligned 32-bit loads of the
-//                          packed row, byte-swapped into one 64-bit stream
-//                          and shifted into place; four bytes of codes come
-//                          out of one packed byte by a shift-or-mask, and
-//                          byte masks pick 5 where a column holds no base.
-//                          One 16-byte store;
-//   blob_n_scatter_kernel  every n_pos entry v in [0, B*Lp) sets column
-//                          1 + v%Lp of row v/Lp to 4 (the sentinel B*Lp is
-//                          dropped).
+// K3d, a row gather, two launches (the N scatter must follow the decode).
+// Its input is a stream of 2-bit codes (base 4j in bits 7-6 of byte j of a
+// row), a row table (each row's first byte in the stream, or none: row r at
+// r*Lp/4, the padded blob of the packed route) and its hoco lengths hl, and
+// up to kBuckets buckets (first row, rows B, padded length Lp, byte offset
+// of its output, a multiple of 16).  Bucket j's output is K1's input,
+// codes_padded uint8 [B, Wd], Wd = 1 + Lp + w + 2, at out + out_off[j]: the
+// loader's unit of parse segments, one output per length bucket.
+//   blob_decode_kernel     column 0 and every column from 1 + hl on hold 5,
+//                          column 1 + p < 1 + hl the 2-bit base p.  Block
+//                          (x, y, z): bucket z, rows y, y + gridDim.y, ...;
+//                          one thread per 16-byte chunk of the bucket's
+//                          output that starts in the row.  A thread tests
+//                          for a row end once per chunk and splits the
+//                          chunk where it crosses one; per row segment it
+//                          reads the row's start and hl once and takes its
+//                          (at most 16) bases from two aligned 32-bit loads
+//                          of the stream, byte-swapped into one 64-bit
+//                          stream and shifted into place; four bytes of
+//                          codes come out of one packed byte by a
+//                          shift-or-mask, and byte masks pick 5 where a
+//                          column holds no base.  One 16-byte store;
+//   blob_n_scatter_kernel  every N entry sets its column to 4: on the packed
+//                          route an i32 v = b*Lp + p (row v/Lp, the
+//                          sentinel B*Lp dropped), on the stream route an
+//                          i64 r<<32 | p of row r of the table (an entry
+//                          whose row is in no bucket of the launch, or with
+//                          p >= Lp, is dropped).
+// The two word loads take the 4-aligned words that hold a row's bases: the
+// caller keeps 8 bytes of the buffer past each row's last packed byte (the
+// padded blob's int32 fields; the loader's stream rows start 16-aligned and
+// every segment's stream ends in 16 spare bytes).
 //
 // K4, one launch, no host read:
 //   sel_tiles_kernel       a single-pass compaction by decoupled look-back,
@@ -91,7 +103,7 @@
 // A window's codes come straight from codes_padded (column 1 + p on, & 3):
 // the selection kernel selects only windows whose w codes are all below 4.
 //
-// Bound: bytes.  K3d reads the blob and writes codes_padded; K4 reads sel
+// Bound: bytes.  K3d reads the packed rows and writes codes_padded; K4 reads sel
 // once, the selected windows, and writes 24 B (packed) or 36 B (keys) per
 // lane.  The per-window work is a few dozen 32-bit instructions per 32
 // bases.  What the designs do about it: K3d makes two word loads per 16
@@ -116,6 +128,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kDecodeBytes = 16;               // output bytes per decode thread
+constexpr int kBuckets = 32;                   // K3d's buckets a launch, at most
 constexpr int kRounds = 8;                     // rounds of 4 codes a lane per warp
 constexpr int kWarpSpan = 32 * 4 * kRounds;    // sel entries per warp: 1024
 constexpr int kTileWarps = kThreads / 32;
@@ -146,20 +159,20 @@ __device__ __forceinline__ uint32_t byte_mask(uint32_t nib) {
 }
 
 // Bytes t0 <= t < t1 of a 16-byte output chunk are columns c0 + t - t0 of
-// row b, whose first h bases are read: column 0 and the columns past them
-// hold 5, column 1 + p base p.  The bases come from the two aligned words
-// that hold the first of them (16 bases span at most 5 packed bytes).
-__device__ __forceinline__ void decode_segment(const uint8_t* __restrict__ blob,
-                                               long long row_bytes, long long b, int h, int c0,
-                                               int t0, int t1, uint32_t word[4]) {
+// a row whose packed bases start at byte at0 of src and whose first h
+// bases are read: column 0 and the columns past them hold 5, column 1 + p
+// base p.  The bases come from the two aligned words that hold the first
+// of them (16 bases span at most 5 packed bytes).
+__device__ __forceinline__ void decode_segment(const uint8_t* __restrict__ src, long long at0,
+                                               int h, int c0, int t0, int t1, uint32_t word[4]) {
   const int p0 = c0 - 1 - t0;  // output byte t holds base p0 + t
   const int lo = max(t0, -p0), hi = min(t1, h - p0);
   uint32_t z = 0;  // the base of output byte t in bits 31-2t .. 30-2t
   if (lo < hi) {
-    const long long at = b * row_bytes + ((p0 + lo) >> 2);
-    const long long a0 = at & ~3LL;  // inside the blob: the packed bytes end 4-aligned
-    const uint32_t w0 = __ldg(reinterpret_cast<const uint32_t*>(blob + a0));
-    const uint32_t w1 = __ldg(reinterpret_cast<const uint32_t*>(blob + a0 + 4));
+    const long long at = at0 + ((p0 + lo) >> 2);
+    const long long a0 = at & ~3LL;  // the caller keeps 8 bytes past a row's last packed byte
+    const uint32_t w0 = __ldg(reinterpret_cast<const uint32_t*>(src + a0));
+    const uint32_t w1 = __ldg(reinterpret_cast<const uint32_t*>(src + a0 + 4));
     // 32 bases in order from bit 63 down
     const uint64_t x = (static_cast<uint64_t>(__byte_perm(w0, 0, 0x0123)) << 32) |
                        __byte_perm(w1, 0, 0x0123);
@@ -177,16 +190,28 @@ __device__ __forceinline__ void decode_segment(const uint8_t* __restrict__ blob,
   }
 }
 
+// A launch's buckets, by value: bucket j is rows row0[j] .. row0[j] +
+// rows[j] - 1 of the row table, padded to Lp[j] columns, its output at
+// out + out_off[j]
+struct Buckets {
+  int n;
+  int Lp[kBuckets];
+  long long row0[kBuckets], rows[kBuckets], out_off[kBuckets];
+};
+
 __global__ void __launch_bounds__(kThreads)
-blob_decode_kernel(const uint8_t* __restrict__ blob, uint8_t* __restrict__ out, long long B,
-                   int Lp, int Wd) {
-  // codes_padded, flat over [B, Wd], in 16-byte chunks at multiples of 16
-  // (the wrapper's output is 16-byte aligned): row b0 (blockIdx.y)
-  // writes the chunks that start in it, one per thread, one 16-byte
-  // store each; a chunk's bytes may run into the next rows
+blob_decode_kernel(const uint8_t* __restrict__ src, const long long* __restrict__ row_off,
+                   const int32_t* __restrict__ hl, Buckets bk, uint8_t* __restrict__ out, int w) {
+  // bucket z's output, flat over [B, Wd], in 16-byte chunks at multiples
+  // of 16 (its offset is 16-aligned): row b0 (blockIdx.y on) writes the
+  // chunks that start in it, one per thread, one 16-byte store each; a
+  // chunk's bytes may run into the next rows of the bucket
+  const int j = blockIdx.z;
+  const long long B = bk.rows[j], row0 = bk.row0[j];
+  const int Lp = bk.Lp[j], Wd = 1 + Lp + w + 2;
+  uint8_t* o = out + bk.out_off[j];
   const long long total = B * Wd;
-  const long long row_bytes = Lp / 4;
-  const int32_t* hl = reinterpret_cast<const int32_t*>(blob + B * row_bytes);
+  const long long row_bytes = Lp / 4;  // the packed route's rows
   const long long k = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   for (long long b0 = blockIdx.y; b0 < B; b0 += gridDim.y) {
     const long long r0 = b0 * Wd;
@@ -199,28 +224,45 @@ blob_decode_kernel(const uint8_t* __restrict__ blob, uint8_t* __restrict__ out, 
     int c = static_cast<int>(f0 - r0);
     for (int t = 0; t < nb; ++b, c = 0) {  // one segment per row the chunk touches
       const int len = min(nb - t, Wd - c);
-      decode_segment(blob, row_bytes, b, min(__ldg(hl + b), Lp), c, t, t + len, word);
+      const long long r = row0 + b;
+      const long long at0 = row_off ? __ldg(row_off + r) : r * row_bytes;
+      decode_segment(src, at0, min(__ldg(hl + r), Lp), c, t, t + len, word);
       t += len;
     }
     if (nb == kDecodeBytes) {
-      *reinterpret_cast<uint4*>(out + f0) = make_uint4(word[0], word[1], word[2], word[3]);
+      *reinterpret_cast<uint4*>(o + f0) = make_uint4(word[0], word[1], word[2], word[3]);
     } else {
 #pragma unroll
       for (int t = 0; t < kDecodeBytes; ++t)
-        if (t < nb) out[f0 + t] = static_cast<uint8_t>(word[t >> 2] >> (8 * (t & 3)));
+        if (t < nb) o[f0 + t] = static_cast<uint8_t>(word[t >> 2] >> (8 * (t & 3)));
     }
   }
 }
 
 __global__ void __launch_bounds__(kThreads)
-blob_n_scatter_kernel(const uint8_t* __restrict__ blob, uint8_t* __restrict__ out,
-                      long long B, int Lp, int Wd, int n_cap) {
+blob_n_scatter_kernel(const int32_t* __restrict__ n32, const long long* __restrict__ n64,
+                      int n_cap, Buckets bk, uint8_t* __restrict__ out, int w) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n_cap) return;
-  const long long v = __ldg(reinterpret_cast<const int32_t*>(blob + B * (Lp / 4)) + B + i);
-  if (v < 0 || v >= B * Lp) return;  // the pad sentinel B*Lp
-  const long long b = v / Lp;
-  out[b * Wd + 1 + (v - b * Lp)] = 4;
+  long long r, p;
+  if (n32) {  // the packed route: one bucket, v = b*Lp + p
+    const long long v = __ldg(n32 + i);
+    if (v < 0) return;
+    r = v / bk.Lp[0];
+    p = v - r * bk.Lp[0];
+  } else {
+    const long long v = __ldg(n64 + i);
+    if (v < 0) return;
+    r = v >> 32;
+    p = v & 0xFFFFFFFFLL;
+  }
+  for (int j = 0; j < bk.n; ++j) {
+    const long long b = r - bk.row0[j];
+    if (b >= 0 && b < bk.rows[j]) {
+      if (p < bk.Lp[j]) out[bk.out_off[j] + b * (1 + bk.Lp[j] + w + 2) + 1 + p] = 4;
+      return;
+    }
+  }  // the sentinel, or a row of another launch's buckets
 }
 
 // The 32 codes at window offsets lo .. lo+31 as eight little-endian words
@@ -582,24 +624,50 @@ extern "C" long long syncmer_details_tiles(long long B, int L) {
   return B * ((static_cast<long long>(L) + kTile - 1) / kTile);
 }
 
-extern "C" int syncmer_decode_launch(const void* blob, void* codes_padded, long long B, int Lp,
-                                     int n_cap, int w, void* stream) {
-  if (B <= 0) return 0;
-  if (Lp < 0 || (Lp & 3) || w < 1 || n_cap < 0) return static_cast<int>(cudaErrorInvalidValue);
-  // the output 16-byte aligned, the blob 4-byte aligned (the packed
-  // bytes, B*Lp/4 of them, end 4-aligned: the int32 fields follow)
-  if ((reinterpret_cast<uintptr_t>(codes_padded) & 15) || (reinterpret_cast<uintptr_t>(blob) & 3) ||
-      ((B * (Lp / 4)) & 3))
+// K3d over n_buckets buckets (row0, rows, Lp and out_off host arrays of
+// that length), in launches of kBuckets.  row_off null: the packed route's
+// blob, row r's bases at src + r*Lp/4 (one bucket).  N entries: n_cap of
+// them, i32 at n32 (the packed route) or i64 r<<32|p at n64.
+extern "C" int syncmer_decode_launch(const void* src, const void* row_off, const void* hl,
+                                     int n_buckets, const long long* row0, const long long* rows,
+                                     const int* Lp, const long long* out_off, const void* n32,
+                                     const void* n64, int n_cap, int w, void* out, void* stream) {
+  if (n_buckets < 0 || w < 1 || n_cap < 0 || (n_cap > 0 && !n32 == !n64) ||
+      (!row_off && n_buckets > 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int Wd = 1 + Lp + w + 2;
-  const int per_row = Wd / kDecodeBytes + 1;  // chunks that start in one row, at most
-  const dim3 grid((per_row + kThreads - 1) / kThreads, static_cast<unsigned>(B < 65535 ? B : 65535));
+  // the output 16-byte aligned, the stream and hl 4-byte aligned
+  if ((reinterpret_cast<uintptr_t>(out) & 15) || (reinterpret_cast<uintptr_t>(src) & 3) ||
+      (reinterpret_cast<uintptr_t>(hl) & 3))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  blob_decode_kernel<<<grid, kThreads, 0, st>>>(static_cast<const uint8_t*>(blob),
-                                                 static_cast<uint8_t*>(codes_padded), B, Lp, Wd);
-  if (n_cap > 0)
-    blob_n_scatter_kernel<<<(n_cap + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-        static_cast<const uint8_t*>(blob), static_cast<uint8_t*>(codes_padded), B, Lp, Wd, n_cap);
+  for (int j0 = 0; j0 < n_buckets; j0 += kBuckets) {
+    Buckets bk{};
+    bk.n = n_buckets - j0 < kBuckets ? n_buckets - j0 : kBuckets;
+    long long max_b = 0;
+    int max_wd = 0;
+    for (int j = 0; j < bk.n; ++j) {
+      const int lp = Lp[j0 + j];
+      if (lp < 0 || (lp & 3) || rows[j0 + j] < 0 || row0[j0 + j] < 0 || (out_off[j0 + j] & 15))
+        return static_cast<int>(cudaErrorInvalidValue);
+      bk.Lp[j] = lp;
+      bk.row0[j] = row0[j0 + j];
+      bk.rows[j] = rows[j0 + j];
+      bk.out_off[j] = out_off[j0 + j];
+      max_b = rows[j0 + j] > max_b ? rows[j0 + j] : max_b;
+      max_wd = 1 + lp + w + 2 > max_wd ? 1 + lp + w + 2 : max_wd;
+    }
+    if (max_b == 0) continue;
+    const int per_row = max_wd / kDecodeBytes + 1;  // chunks that start in one row, at most
+    const dim3 grid((per_row + kThreads - 1) / kThreads,
+                    static_cast<unsigned>(max_b < 65535 ? max_b : 65535), bk.n);
+    blob_decode_kernel<<<grid, kThreads, 0, st>>>(
+        static_cast<const uint8_t*>(src), static_cast<const long long*>(row_off),
+        static_cast<const int32_t*>(hl), bk, static_cast<uint8_t*>(out), w);
+    if (n_cap > 0)
+      blob_n_scatter_kernel<<<(n_cap + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+          static_cast<const int32_t*>(n32), static_cast<const long long*>(n64), n_cap, bk,
+          static_cast<uint8_t*>(out), w);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

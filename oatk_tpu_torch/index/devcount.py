@@ -238,10 +238,25 @@ class DevCountState:
         device tensor); nothing is read back."""
         from ..kernels.syncmer import extract_hoco_fused_keys
 
+        return self._commit(max_out, lambda off: extract_hoco_fused_keys(
+            blob, B, Lp, n_cap, w, s, max_out, sids, self._bufs, off))
+
+    def append_rows(self, codes_padded, w: int, s: int, max_out: int,
+                    sids) -> tuple[int, torch.Tensor]:
+        """:meth:`append` for rows that K3d laid out already
+        (``codes_padded`` ``[B, 1+L+w+2]``): K1 -> K4 only."""
+        from ..kernels.syncmer import select_keys
+
+        return self._commit(max_out, lambda off: select_keys(
+            codes_padded, w, s, max_out, sids, self._bufs, off))
+
+    def _commit(self, max_out: int, write) -> tuple[int, torch.Tensor]:
+        """Give ``write(off)`` (which queues the keys at lane ``off`` and
+        returns the n_sel tensor) ``max_out`` lanes at the append offset."""
         self._drop_final()
         self._ensure(max_out)
         off = self.n_fill
-        n_sel = extract_hoco_fused_keys(blob, B, Lp, n_cap, w, s, max_out, sids, self._bufs, off)
+        n_sel = write(off)
         self.n_fill = off + max_out
         self.n_append += 1
         return off, n_sel

@@ -10,7 +10,10 @@ strand, the 2-bit window pack, the reverse complement and MurmurHash64A
 (:func:`.syncmer_details.selected_details`, K4).  On a card a chunk is
 four launches at most (K3d one or two, K1, K4) and no host read; the
 caller reads n_sel once.  :func:`extract_hoco_fused_keys` runs the same
-chain but has K4 write the device count's key lanes itself.
+chain but has K4 write the device count's key lanes itself;
+:func:`select_keys` is its K1 -> K4 part, for rows that K3d laid out
+already (the loader decodes a whole unit of reads in one K3d call,
+:func:`.syncmer_details.decode_rows`, then selects per length bucket).
 :func:`extract_hoco_rows` (``--shards``) starts from host-compressed
 code rows and :func:`extract_syncmers_ascii` (``OATK_TPU_DEVICE_HOCO``,
 K11) from raw ASCII rows: :func:`hoco_phase` compresses homopolymers on
@@ -61,7 +64,14 @@ def extract_hoco_fused_keys(
     made.  Returns the EXACT n_sel as a one-element int64 tensor on the
     device; when n_sel > max_out the caller regrows max_out and writes
     the same lanes again."""
-    codes_padded = decode_blob(blob, B, Lp, n_cap, w)
+    return select_keys(decode_blob(blob, B, Lp, n_cap, w), w, s, max_out, sids, bufs, off)
+
+
+def select_keys(codes_padded: torch.Tensor, w: int, s: int, max_out: int, sids: torch.Tensor,
+                bufs, off: int) -> torch.Tensor:
+    """K1 and K4 of :func:`extract_hoco_fused_keys` over rows already
+    decoded (``codes_padded`` ``[B, 1+L+w+2]``): the keys in lanes
+    ``[off, off+max_out)``, the exact n_sel as a device tensor."""
     return selected_keys(codes_padded, syncmer_select(codes_padded, w, s), w, s, max_out,
                          sids, bufs, off)
 

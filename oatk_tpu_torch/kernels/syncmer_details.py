@@ -14,9 +14,15 @@ header notes the design and what bounds it), compiled at first use with
 ``build/kernels/`` directory at the repository root and loaded with
 ctypes.
 
-- :func:`decode_blob`: the blob ``[B*Lp/4 | hl i32[B] | n_pos i32[n_cap]]``
-  -> the selection kernel's input ``codes_padded`` uint8
-  ``[B, 1+Lp+w+2]`` (0-3 a base, 4 an N, 5 pad and past each read's end).
+- :func:`decode_rows`: K3d as a row gather.  2-bit packed reads in a
+  stream (row r's bases from byte ``row_off[r]`` on, ``hl[r]`` of them),
+  cut into length buckets ``(row0, B, Lp)`` of consecutive table rows ->
+  the selection kernel's input ``codes_padded`` uint8 ``[B, 1+Lp+w+2]``
+  per bucket (0-3 a base, 4 an N, 5 pad and past each read's end), all in
+  one launch (two with Ns): the loader's key route lays out a whole unit
+  of parse segments this way.
+- :func:`decode_blob`: the same kernel on the packed route's padded blob
+  ``[B*Lp/4 | hl i32[B] | n_pos i32[n_cap]]``, row b at ``b*Lp/4``.
 - :func:`selected_details`: ``codes_padded`` and the selection codes
   ``sel`` int32 ``[B, L]`` -> the packed int64 ``[3, max_out+1]``: row 0
   ``flat<<1|z`` (flat = b*L + p, ascending), row 1 the s-mer payload,
@@ -28,10 +34,10 @@ ctypes.
   exact n_sel comes back as a one-element device tensor.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises, nothing falls back.  ``decode_blob.launches``,
-``selected_details.launches`` and ``selected_keys.launches`` count
-kernel launches (the decode makes two when the blob holds N positions,
-K4 one per call), and nothing else.
+or raises, nothing falls back.  ``decode_rows.launches``,
+``decode_blob.launches``, ``selected_details.launches`` and
+``selected_keys.launches`` count kernel launches (the decode makes two
+when it has N positions to mark, K4 one per call), and nothing else.
 """
 from __future__ import annotations
 
@@ -50,6 +56,7 @@ _SO = f"{cuda_build.SO_DIR}/libsyncmer_details.so"
 
 _MURMUR_M = as_i64(0xC6A4A7935BD1E995)
 _SHIFTS = (6, 4, 2, 0)
+KBUCKETS = 32  # csrc/syncmer_details.cu:kBuckets, K3d's buckets a launch
 DETAILS_LAUNCHES = 1  # K4: compaction and details in one launch
 
 _lib = None
@@ -69,9 +76,11 @@ def _load():
                 build()
                 lib = ctypes.CDLL(_SO)
                 lib.syncmer_decode_launch.restype = ctypes.c_int
+                i64p, i32p = ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int)
                 lib.syncmer_decode_launch.argtypes = [
-                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, i64p, i64p,
+                    i32p, i64p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_void_p,
                 ]
                 lib.syncmer_details_launch.restype = ctypes.c_int
                 lib.syncmer_details_launch.argtypes = (
@@ -110,6 +119,24 @@ def _check_blob(blob: torch.Tensor, B: int, Lp: int, n_cap: int, w: int) -> None
         raise ValueError(f"decode_blob: blob of {blob.numel()} B is shorter than {need} B")
 
 
+def _launch_decode(src, row_off_ptr: int, hl_ptr: int, buckets, offs, n32_ptr: int,
+                   n64_ptr: int, n_cap: int, w: int, out: torch.Tensor) -> None:
+    """One K3d call (``csrc/syncmer_details.cu:syncmer_decode_launch``)
+    over ``buckets`` (row0, B, Lp) with their output offsets ``offs``."""
+    lib = _load()
+    nb = len(buckets)
+    row0 = (ctypes.c_longlong * nb)(*(int(b[0]) for b in buckets))
+    rows = (ctypes.c_longlong * nb)(*(int(b[1]) for b in buckets))
+    lps = (ctypes.c_int * nb)(*(int(b[2]) for b in buckets))
+    oo = (ctypes.c_longlong * nb)(*(int(o) for o in offs))
+    with torch.cuda.device(out.device):
+        rc = lib.syncmer_decode_launch(src.data_ptr(), row_off_ptr or None, hl_ptr, nb, row0, rows,
+                                       lps, oo, n32_ptr or None, n64_ptr or None, n_cap, w,
+                                       out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"syncmer decode kernel launch failed: CUDA error {rc}")
+
+
 def decode_blob(blob: torch.Tensor, B: int, Lp: int, n_cap: int, w: int) -> torch.Tensor:
     """``codes_padded`` uint8 ``[B, 1+Lp+w+2]`` from an upload blob."""
     _check_blob(blob, B, Lp, n_cap, w)
@@ -117,15 +144,12 @@ def decode_blob(blob: torch.Tensor, B: int, Lp: int, n_cap: int, w: int) -> torc
         return decode_blob_plain(blob, B, Lp, n_cap, w)
     if blob.data_ptr() % 4:
         raise ValueError("decode_blob: a CUDA blob must start 4-byte aligned (its int32 fields)")
-    lib = _load()
     out = torch.empty((B, 1 + Lp + w + 2), dtype=torch.uint8, device=blob.device)
     if B == 0:
         return out  # nothing to launch
-    with torch.cuda.device(blob.device):
-        rc = lib.syncmer_decode_launch(blob.data_ptr(), out.data_ptr(), B, Lp, n_cap, w,
-                                       torch.cuda.current_stream().cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"syncmer decode kernel launch failed: CUDA error {rc}")
+    p = blob.data_ptr()
+    _launch_decode(blob, 0, p + B * Lp // 4, [(0, B, Lp)], [0],
+                   p + B * Lp // 4 + 4 * B if n_cap else 0, 0, n_cap, w, out)
     decode_blob.launches += 2 if n_cap else 1
     return out
 
@@ -137,22 +161,106 @@ def decode_blob_plain(blob: torch.Tensor, B: int, Lp: int, n_cap: int, w: int) -
     """Plain PyTorch version of the decode: unpack, 5 past each read's
     end, 4 at every N position (the pad entries B*Lp land in a spare slot
     that is dropped), pad columns."""
-    dev = blob.device
     np_ = B * Lp // 4
     packed = blob[:np_].view(B, Lp // 4)
     hl = blob[np_ : np_ + 4 * B].view(torch.int32)
     n_pos = blob[np_ + 4 * B : np_ + 4 * B + 4 * n_cap].view(torch.int32)
-
-    sh = torch.tensor(_SHIFTS, dtype=torch.uint8, device=dev)
-    codes = ((packed.unsqueeze(2) >> sh) & 3).view(B, Lp)
-    pos = torch.arange(Lp, dtype=torch.int32, device=dev)
-    codes = torch.where(pos < hl.unsqueeze(1), codes, 5).to(torch.uint8)
+    codes = _unpack_rows(packed, hl, Lp)
     sel_in = torch.cat([codes.view(-1), codes.new_zeros(1)])
     if n_cap:
         sel_in[n_pos.long()] = 4
-    sel_in = sel_in[: B * Lp].view(B, Lp)
-    five = codes.new_full((B, 1), 5)
-    return torch.cat([five, sel_in, five.expand(B, w + 2)], dim=1)
+    return _pad_columns(sel_in[: B * Lp].view(B, Lp), w)
+
+
+def _unpack_rows(packed: torch.Tensor, hl: torch.Tensor, Lp: int) -> torch.Tensor:
+    """[B, Lp/4] packed bytes -> [B, Lp] codes, 5 from each row's hl on."""
+    sh = torch.tensor(_SHIFTS, dtype=torch.uint8, device=packed.device)
+    codes = ((packed.unsqueeze(2) >> sh) & 3).view(packed.shape[0], Lp)
+    pos = torch.arange(Lp, dtype=torch.int32, device=packed.device)
+    return torch.where(pos < hl.unsqueeze(1), codes, 5).to(torch.uint8)
+
+
+def _pad_columns(codes: torch.Tensor, w: int) -> torch.Tensor:
+    """A 5 before each row and w+2 after it."""
+    five = codes.new_full((codes.shape[0], 1), 5)
+    return torch.cat([five, codes, five.expand(codes.shape[0], w + 2)], dim=1)
+
+
+def rows_layout(buckets, w: int) -> tuple[list[int], int]:
+    """Where :func:`decode_rows` puts each bucket's ``[B, 1+Lp+w+2]``
+    output in its one buffer: (byte offsets, each a multiple of 16; the
+    buffer's size)."""
+    offs, at = [], 0
+    for _row0, B, Lp in buckets:
+        offs.append(at)
+        at += -(-B * (1 + Lp + w + 2) // 16) * 16
+    return offs, at
+
+
+def _check_rows(stream, row_off, hl, buckets, n_rows, w) -> None:
+    if stream.dtype != torch.uint8 or stream.dim() != 1 or not stream.is_contiguous():
+        raise TypeError(f"decode_rows: stream must be contiguous 1-D uint8, got {stream.dtype} "
+                        f"{tuple(stream.shape)}")
+    for t, dt, name in ((row_off, torch.int64, "row_off"), (hl, torch.int32, "hl"),
+                        (n_rows, torch.int64, "n_rows")):
+        if t.dtype != dt or t.dim() != 1 or not t.is_contiguous():
+            raise TypeError(f"decode_rows: {name} must be contiguous 1-D {dt}, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    if row_off.numel() != hl.numel() or w < 1:
+        raise ValueError(f"decode_rows: {row_off.numel()} row offsets, {hl.numel()} lengths, w={w}")
+    for row0, B, Lp in buckets:
+        if row0 < 0 or B < 0 or row0 + B > hl.numel() or Lp < 0 or Lp % 4:
+            raise ValueError(f"decode_rows: bad bucket rows [{row0}, {row0 + B}) of {hl.numel()}, "
+                             f"Lp={Lp}")
+
+
+def decode_rows(stream: torch.Tensor, row_off: torch.Tensor, hl: torch.Tensor, buckets,
+                n_rows: torch.Tensor, w: int) -> list[torch.Tensor]:
+    """``codes_padded`` uint8 ``[B, 1+Lp+w+2]`` for each bucket ``(row0, B,
+    Lp)`` of the row table: row ``row0 + b``'s bases are the 2-bit codes
+    from byte ``row_off[row0+b]`` of ``stream`` on (base 4j in bits 7-6 of
+    byte j), ``hl[row0+b] <= Lp`` of them; each entry ``r<<32 | p`` of
+    ``n_rows`` marks column p of table row r as an N.  On a card the
+    outputs are views of one buffer laid out by :func:`rows_layout`, and
+    the stream must hold 8 bytes past each row's last packed byte."""
+    _check_rows(stream, row_off, hl, buckets, n_rows, w)
+    if _device_of("decode_rows", stream, row_off, hl, n_rows) == "cpu":
+        return decode_rows_plain(stream, row_off, hl, buckets, n_rows, w)
+    if stream.data_ptr() % 4 or hl.data_ptr() % 4:
+        raise ValueError("decode_rows: a CUDA stream and its lengths must start 4-byte aligned")
+    offs, size = rows_layout(buckets, w)
+    out = torch.empty(size, dtype=torch.uint8, device=stream.device)
+    n_cap = n_rows.numel()
+    if any(B for _r, B, _l in buckets):
+        _launch_decode(stream, row_off.data_ptr(), hl.data_ptr(), buckets, offs, 0,
+                       n_rows.data_ptr() if n_cap else 0, n_cap, w, out)
+        decode_rows.launches += (2 if n_cap else 1) * -(-len(buckets) // KBUCKETS)
+    return [out[o : o + B * (1 + Lp + w + 2)].view(B, 1 + Lp + w + 2)
+            for o, (_r, B, Lp) in zip(offs, buckets)]
+
+
+decode_rows.launches = 0
+
+
+def decode_rows_plain(stream: torch.Tensor, row_off: torch.Tensor, hl: torch.Tensor, buckets,
+                      n_rows: torch.Tensor, w: int) -> list[torch.Tensor]:
+    """Plain PyTorch version of the row gather: each bucket's rows
+    gathered from the stream as packed ``[B, Lp/4]``, then the blob
+    decode's unpack, read-end mask, N marks and pad columns."""
+    dev = stream.device
+    out = []
+    nr = n_rows.long()
+    # rows that end near the stream's end read zeros past it
+    src = torch.cat([stream, stream.new_zeros(max((Lp // 4 for _r, _b, Lp in buckets), default=0))])
+    for row0, B, Lp in buckets:
+        ro = row_off[row0 : row0 + B]
+        packed = src[ro.unsqueeze(1) + torch.arange(Lp // 4, device=dev)]
+        codes = _unpack_rows(packed, hl[row0 : row0 + B], Lp)
+        b, p = (nr >> 32) - row0, nr & 0xFFFFFFFF
+        hit = (b >= 0) & (b < B) & (p < Lp)
+        codes.view(-1)[b[hit] * Lp + p[hit]] = 4
+        out.append(_pad_columns(codes, w))
+    return out
 
 
 def _check_details(codes_padded: torch.Tensor, sel: torch.Tensor, w: int, s: int,
@@ -197,14 +305,15 @@ def _status(device: torch.device, n_tiles: int) -> tuple[torch.Tensor, torch.Ten
         return st
 
 
-def _launch_details(codes_padded, sel, w, s, max_out, packed=None, keys=None, n_sel=None,
+def _launch_details(codes_padded, sel, w, s, max_out, packed=None, keys=None, off=0, n_sel=None,
                     sids=None) -> None:
     B, L = sel.shape
     lib = _load()
     dev = sel.device
     with torch.cuda.device(dev):
         status, ctr = _status(dev, int(lib.syncmer_details_tiles(B, L)))
-        ptrs = [0] * 5 if keys is None else [k.data_ptr() for k in keys]
+        # lane off of each key buffer, by address (no view per call)
+        ptrs = [0] * 5 if keys is None else [k.data_ptr() + off * k.element_size() for k in keys]
         rc = lib.syncmer_details_launch(
             codes_padded.data_ptr(), sel.data_ptr(), B, L, w, s, max_out,
             0 if packed is None else packed.data_ptr(), *ptrs,
@@ -258,8 +367,7 @@ def selected_keys(codes_padded: torch.Tensor, sel: torch.Tensor, w: int, s: int,
     if _device_of("selected_keys", codes_padded, sel, sids, *bufs) == "cpu":
         return selected_keys_plain(codes_padded, sel, w, s, max_out, sids, bufs, off)
     n_sel = torch.empty(1, dtype=torch.int64, device=sel.device)
-    _launch_details(codes_padded, sel, w, s, max_out, keys=[b[off:] for b in bufs], n_sel=n_sel,
-                    sids=sids)
+    _launch_details(codes_padded, sel, w, s, max_out, keys=bufs, off=off, n_sel=n_sel, sids=sids)
     selected_keys.launches += DETAILS_LAUNCHES
     return n_sel
 

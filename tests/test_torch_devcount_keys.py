@@ -149,10 +149,10 @@ def _state_by_key_route(chunks, w, s, device="cpu"):
         blob_d, sids_d = up.put(blob, sids)
         off, n_d = st.append(blob_d, B, Lp, n_cap, w, s, max_out, sids_d)
         up.done()
-        pending.append((blob, B, Lp, n_cap, max_out, off, sids, n_d))
-    counters = dict(regrows=0, nsel_reads=1)
+        pending.append(R._Pending(lambda b=blob, c=n_cap: (b, c), B, Lp, max_out, off, sids, n_d))
+    counters = dict(regrows=0, nsel_reads=1, host_rows=0)
     spans = list(st.log)
-    for i, (pend, n_sel) in enumerate(zip(pending, torch.cat([p[-1] for p in pending]).cpu().tolist())):
+    for i, (pend, n_sel) in enumerate(zip(pending, torch.cat([p.n_sel for p in pending]).cpu().tolist())):
         n_log = len(st.log)
         st.n_occ += R._grow_if_overflow(st, up, pend, n_sel, w, s, counters)
         if len(st.log) > n_log:  # regrown: its last append holds its lanes
@@ -201,7 +201,7 @@ def test_overflow_retry_rewrites_the_same_lanes(monkeypatch):
     st, spans, counters = _state_by_key_route(chunks, w, s)
     # three chunks queued, then the second regrown twice (64 -> 128 -> room)
     assert calls[:3] == [2048, 64, 4096] and calls[3] == 128 and calls[4] > 128 and len(calls) == 5
-    assert counters == dict(regrows=2, nsel_reads=3)
+    assert counters == dict(regrows=2, nsel_reads=3, host_rows=3)  # its 3 rows laid out once
     assert st.n_append == 5 and st.n_invalidate == 2 and st.n_occ == ref.n_occ
     assert [n for _, n in spans] == [n for _, n in ref_spans]
     assert spans[1][0] == 2048 + 64 + 4096 + 128  # behind both abandoned attempts

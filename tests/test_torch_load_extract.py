@@ -7,6 +7,7 @@ device-hoco route.  Every per-read array (values and dtypes) and the
 SyncmerDB after collect_syncmer_db must be equal; the Python reader's
 routes are held against the JAX host oracle."""
 import gzip
+import os
 
 import numpy as np
 import pytest
@@ -142,6 +143,70 @@ def test_multi_file_fastq_gz(tmp_path, reads, both_segs):
     t = _torch_db(paths)
     assert [r.sid for r in t[0].reads] == list(range(len(reads)))
     _assert_same(_jax_db(paths), t)
+
+
+@pytest.mark.parametrize("regrow", [False, True])
+@pytest.mark.parametrize("n_files", [1, 2, 3])
+def test_units_span_segments(tmp_path, reads, both_segs, monkeypatch, n_files, regrow):
+    """The key route uploads units of several parse segments and lays out
+    their rows on the device; its ReadDB and SyncmerDB equal the JAX
+    loader's over 1-3 files, with the port's first capacity clamped to 64
+    lanes (every append regrows from the whole-file codes) or not."""
+    from oatk_tpu_torch.asm import reads as TR
+
+    paths = []
+    cut = np.linspace(0, len(reads), n_files + 1).astype(int)
+    for i in range(n_files):
+        p = tmp_path / f"r{i}.fa"
+        _write_fa(str(p), reads[cut[i]:cut[i + 1]], prefix=f"f{i}_")
+        paths.append(str(p))
+    both_segs(2048)
+    monkeypatch.setattr(TR, "_UNIT_POSITIONS", 2500)  # two or three segments a unit
+    if regrow:
+        monkeypatch.setattr(TR, "_capacity", lambda B, Lp, w, s: 64)
+    t = _torch_db(paths)
+    c = t[0].load_counters
+    n_seg = sum(max(1, os.path.getsize(p) // 2048) for p in paths)
+    assert n_files < c["units"] < n_seg and c["device_rows"] == len(reads)
+    assert c["regrows"] == (c["appends"] // 2 if regrow else 0)
+    assert c["host_rows"] == (len(reads) if regrow else 0)
+    assert c["appends"] == t[0]._devcount_stats.n_append >= c["units"]
+    assert c["nsel_reads"] == n_files + c["regrows"] and c["chunk_reads"] == 0
+    _assert_same(_jax_db(paths), t)
+
+
+@pytest.mark.parametrize("w", [51, 1001])
+def test_stream_pack_matches_numpy(w):
+    """The workers' native stream pack (asm/stream_pack.py) against numpy:
+    each read's 2-bit bytes from its 16-aligned offset on, zeros past its
+    last base and 16 spare ones, its length bucket as _bucket_len of
+    max(hl, w+4) at and around every bucket edge, empty reads, and each N
+    as (read, position) by a search of the read offsets."""
+    from oatk_tpu_torch.asm.reads import _bucket_len
+    from oatk_tpu_torch.asm.stream_pack import pack_stream
+    from oatk_tpu_torch.kernels.oracle import pack_hoco
+
+    rng = np.random.default_rng(w)
+    edges = [0, 1, 2, 3, 4, 63, 64, 65, 511, 512, 513, 1023, 1024, 1025, 2047, 2048, 2049, 4095,
+             4096, 4097, 6143, 6144, 6145, 20000, w + 3, w + 4, w + 5]
+    lens = np.array(edges + list(rng.integers(0, 9000, 40)) + [0, 0, 7], np.int64)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    codes = rng.integers(0, 4, int(offs[-1])).astype(np.uint8)
+    isn = np.unique(np.concatenate([offs[:-1][lens > 0], offs[1:][lens > 0] - 1,
+                                    rng.integers(0, int(offs[-1]), 50)]))
+    sg = pack_stream(offs, codes, isn, w)
+    blocks = -(-lens // 64)
+    assert np.array_equal(sg.row_off, 16 * np.concatenate([[0], np.cumsum(blocks)[:-1]]))
+    assert len(sg.stream) == 16 * (int(blocks.sum()) + 1) and not sg.stream[-16:].any()
+    assert np.array_equal(sg.hl, lens) and sg.hl.dtype == sg.lp.dtype == np.int32
+    assert sg.lp.tolist() == [_bucket_len(max(int(n), w + 4)) for n in lens]
+    for i, n in enumerate(lens):
+        row = sg.stream[sg.row_off[i]:sg.row_off[i] + 16 * blocks[i]]
+        want = np.zeros(16 * blocks[i], np.uint8)
+        want[:(n + 3) // 4] = pack_hoco(codes[offs[i]:offs[i + 1]])
+        assert np.array_equal(row, want), i
+    i = np.searchsorted(offs, isn, side="right") - 1
+    assert np.array_equal(sg.n_rows, (i << 32) | (isn - offs[i]))
 
 
 def test_single_segment(tmp_path, reads):

@@ -1,28 +1,31 @@
 """The key route of oatk_tpu_torch's pipelined loader (asm/reads.py:
-load_and_extract with device counting) queues every chunk and reads the
-chunks' n_sel back once per file, as the JAX package's loader does
+load_and_extract with device counting) uploads units of whole parse
+segments, appends per length bucket of a unit and reads the appends'
+n_sel back once per file, as the JAX package's loader reads its chunks'
 (oatk_tpu/asm/reads.py:787-895): on the CPU, against oatk_tpu with its
 Pallas extraction in interpret mode, on the same seeded reads (k=51,
-s=11, segments shrunk so that several segments and chunks run).
+s=11, segments and units shrunk so that units of several segments run).
 
 - (a) forced overflow: the extraction capacity pinned at its floor of
   1024 lanes (``_sel_divisor`` patched to a huge divisor in both
-  packages) overflows several chunks; after the one drain each regrows
-  once (lanes invalidated, the chunk appended again at a new offset),
-  and the SyncmerDB arrays and per-read views equal the JAX package's
-  exactly, and the unpatched run's.  The chunks that overflow are
-  counted from the unpatched run's n_sel (the JAX loader regrows more:
-  its compaction can report an overflow that is not one).
-- (b) a mixed FASTA/FASTQ file: chunks of the optimistic split are
+  packages) overflows several appends; after the one drain each regrows
+  once (lanes invalidated, its rows packed again from the whole-file
+  codes and appended at a new offset), and the SyncmerDB arrays and
+  per-read views equal the JAX package's exactly, and the unpatched
+  run's.  The appends that overflow are counted from the unpatched run's
+  n_sel (the JAX loader regrows more: its compaction can report an
+  overflow that is not one).
+- (b) a mixed FASTA/FASTQ file: units of the optimistic split are
   queued, the split is discarded (lanes invalidated, the pending n_sel
   tensors never touched) and the Python reader takes over; the ReadDB
   equals the JAX package's ``load_reads``.
-- (c) on the key route the only use of a chunk's n_sel tensor is the
+- (c) on the key route the only use of an append's n_sel tensor is the
   one ``torch.cat`` per file, whose result is read once: one host read
-  per file and none per chunk (``load_counters``), the finalize's sorts
+  per file and none per unit (``load_counters``), the finalize's sorts
   queued once, after the last file, and none of them reading the host.
-- ``cuda``-marked: the pinned upload ring on the card with more chunks
-  than slots gives the CPU run's bytes (skipped without a card).
+- ``cuda``-marked: the pinned upload ring on the card with more units
+  than slots gives the CPU run's bytes, with and without regrows
+  (skipped without a card).
 """
 import numpy as np
 import pytest
@@ -55,13 +58,15 @@ def reads():
 
 @pytest.fixture
 def segs(monkeypatch):
-    """Shrink the segment size of both loaders."""
+    """Shrink the segment size of both loaders, and the port's units to
+    about two segments (the reads' hoco is about half their bases)."""
     from oatk_tpu.asm import reads as JR
     from oatk_tpu_torch.asm import reads as TR
 
     def set_(n):
         monkeypatch.setattr(JR, "_SEG_BYTES", n)
         monkeypatch.setattr(TR, "_SEG_BYTES", n)
+        monkeypatch.setattr(TR, "_UNIT_POSITIONS", n)
 
     return set_
 
@@ -101,18 +106,19 @@ class _Watch(TorchFunctionMode):
 
 @pytest.fixture
 def watch(monkeypatch):
-    """A _Watch over every n_sel tensor of DevCountState.append."""
+    """A _Watch over the n_sel tensor of every append to DevCountState
+    (``_commit``, which ``append_rows`` and ``append`` share)."""
     from oatk_tpu_torch.index.devcount import DevCountState
 
     w = _Watch()
-    real = DevCountState.append
+    real = DevCountState._commit
 
-    def append(self, *a):
+    def commit(self, *a):
         off, n_sel = real(self, *a)
         w.add(n_sel)
         return off, n_sel
 
-    monkeypatch.setattr(DevCountState, "append", append)
+    monkeypatch.setattr(DevCountState, "_commit", commit)
     return w
 
 
@@ -153,7 +159,7 @@ def _assert_same(j, t):
 
 
 def test_forced_overflow_regrows_after_the_drain(tmp_path, reads, segs, monkeypatch, watch):
-    """(a) Several chunks overflow their 1024 lanes; each regrows once
+    """(a) Several appends overflow their 1024 lanes; each regrows once
     after the one drain, and the result equals the JAX loader's (patched
     the same way) and the port's own unpatched run."""
     from oatk_tpu.asm import reads as JR
@@ -165,9 +171,12 @@ def test_forced_overflow_regrows_after_the_drain(tmp_path, reads, segs, monkeypa
     with watch:
         plain = _torch_db([str(fa)])
     assert plain[0].load_counters["regrows"] == 0
-    first = [int(t[0]) for t in watch.watched.values()]  # each chunk's exact n_sel
+    first = [int(t[0]) for t in watch.watched.values()]  # each append's exact n_sel
     n_chunks, n_over = len(first), sum(n > 1024 for n in first)
     assert n_chunks == plain[0]._devcount_stats.n_append and n_over >= 2
+    pc = plain[0].load_counters
+    assert pc["appends"] == n_chunks >= pc["units"] >= 2 and pc["host_rows"] == 0
+    assert pc["device_rows"] == len(reads)
     watch.watched.clear()
     watch.log.clear()
 
@@ -180,6 +189,8 @@ def test_forced_overflow_regrows_after_the_drain(tmp_path, reads, segs, monkeypa
     c = t[0].load_counters
     assert c["regrows"] == n_over
     assert c["files"] == 1 and c["chunk_reads"] == 0 and c["nsel_reads"] == 1 + n_over
+    assert c["appends"] == n_chunks + n_over and c["units"] == pc["units"]
+    assert 0 < c["host_rows"] <= len(reads)  # the overflowed appends' rows, packed again
     st = t[0]._devcount_stats
     assert st.n_append == n_chunks + n_over and st.n_invalidate == n_over
     # the chunks' first tensors go into the one cat; each regrow reads its own
@@ -220,7 +231,7 @@ def test_mixed_format_discards_pending_chunks(tmp_path, reads, segs, monkeypatch
         mp.setattr(DevCountState, "invalidate", invalidate)
         with watch:
             db = TP.load_reads([str(mixed)], W, S, device="cpu")
-    assert len(watch.watched) >= 2  # chunks were pending when the attempt was discarded
+    assert len(watch.watched) >= 2  # appends were pending when the attempt was discarded
     assert inval and inval[0][0] == 0 and inval[0][1] == inval[0][2]  # every lane of the attempt
     assert watch.log == []  # no pending n_sel was read, or even concatenated
     assert getattr(db, "_devcount", None) is None  # the Python reader counted on the host
@@ -236,7 +247,7 @@ def test_mixed_format_discards_pending_chunks(tmp_path, reads, segs, monkeypatch
 
 @pytest.mark.parametrize("n_files", [1, 2])
 def test_one_nsel_read_per_file(tmp_path, reads, segs, monkeypatch, watch, n_files):
-    """(c) Each chunk's n_sel tensor is used once, in its file's one
+    """(c) Each append's n_sel tensor is used once, in its file's one
     ``torch.cat``, whose result the host reads once; the finalize's
     sorts are queued once, after the last file's chunks, before the
     drain.  Equal to the JAX loader."""
@@ -257,9 +268,10 @@ def test_one_nsel_read_per_file(tmp_path, reads, segs, monkeypatch, watch, n_fil
         t = _torch_db(paths)
     c = t[0].load_counters
     n_chunks = t[0]._devcount_stats.n_append
-    assert n_chunks >= 2 * n_files
+    assert n_chunks >= c["units"] >= 2 * n_files
     assert c == dict(files=n_files, nsel_reads=n_files, chunk_reads=0, regrows=0,
-                     pinned_bytes=0, copy_uploads=0)
+                     pinned_bytes=0, copy_uploads=0, units=c["units"], appends=n_chunks,
+                     device_rows=len(reads), host_rows=0)
     cats = [e for e in watch.log if e[0] == "cat" and e[1] != "cat"]
     assert len(cats) == n_files and sum(n for _, n in cats) == n_chunks
     reads_of_cat = [e[0] for e in watch.log if e[1] == "cat" and e[0] in HOST_READS]
@@ -304,7 +316,8 @@ def test_finalize_sorted_reads_nothing():
 
 
 def test_uploads_on_cpu_use_the_blob_in_place():
-    """On the CPU the upload ring neither pins nor copies."""
+    """On the CPU the upload ring neither pins nor copies a lone array,
+    and lays a list of arrays end to end."""
     from oatk_tpu_torch.asm.reads import Uploads
 
     up = Uploads("cpu")
@@ -313,15 +326,20 @@ def test_uploads_on_cpu_use_the_blob_in_place():
     up.done()
     assert b.data_ptr() == blob.ctypes.data and s.data_ptr() == sids.ctypes.data
     assert up.uploads == 0 and up.pinned_bytes == 0
+    (cat,) = up.put([blob[:5], blob[7:9]])
+    assert cat.tolist() == [0, 1, 2, 3, 4, 7, 8]
 
 
 # --- on the card ----------------------------------------------------------------
 
 @pytest.mark.cuda
-def test_cuda_pinned_ring_reuses_slots(tmp_path, reads, monkeypatch):
-    """More chunks than pinned slots: every slot staged several uploads,
+@pytest.mark.parametrize("regrow", [False, True])
+def test_cuda_pinned_ring_reuses_slots(tmp_path, reads, monkeypatch, regrow):
+    """More units than pinned slots: every slot staged several uploads,
     the pinned memory stays at the slot count times the largest upload,
-    and the bytes equal the CPU run's."""
+    and the bytes equal the CPU run's; with the first capacity clamped to
+    64 lanes, every append regrows after the drain, on the card as on
+    the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     from oatk_tpu_torch.asm import reads as TR
@@ -329,16 +347,23 @@ def test_cuda_pinned_ring_reuses_slots(tmp_path, reads, monkeypatch):
     fa = tmp_path / "r.fa"
     _write_fa(str(fa), reads)
     monkeypatch.setattr(TR, "_SEG_BYTES", 16 << 10)  # the card's machine has no JAX package
+    monkeypatch.setattr(TR, "_UNIT_POSITIONS", 8 << 10)
     monkeypatch.setattr(TR, "_UPLOAD_SLOTS", 2)
+    if regrow:
+        monkeypatch.setattr(TR, "_capacity", lambda B, Lp, w, s: 64)
     sizes = []
     real_put = TR.Uploads.put
-    monkeypatch.setattr(TR.Uploads, "put", lambda self, blob, sids: sizes.append(
-        TR._round_up(blob.nbytes, 8) + sids.nbytes) or real_put(self, blob, sids))
+    monkeypatch.setattr(TR.Uploads, "put", lambda self, *fields: sizes.append(sum(
+        TR._round_up(sum(a.nbytes for a in (f if isinstance(f, list) else [f])), 16)
+        for f in fields)) or real_put(self, *fields))
     cpu = _torch_db([str(fa)])
     for _ in range(3):  # a reuse race shows only now and then
+        sizes.clear()
         card = _torch_db([str(fa)], device="cuda")
         c = card[0].load_counters
-        n_chunks = card[0]._devcount_stats.n_append
-        assert c["copy_uploads"] == n_chunks >= 3 * 2 and c["nsel_reads"] == 1
+        assert c["units"] >= 3 * 2 and c["nsel_reads"] == 1 + c["regrows"]
+        assert c["copy_uploads"] == c["units"] + c["regrows"] == len(sizes)
+        assert (c["regrows"] == c["appends"] // 2 > 0) == regrow
+        assert c["host_rows"] == (len(reads) if regrow else 0)
         assert max(sizes) <= c["pinned_bytes"] <= 2 * max(sizes)
         _assert_same(cpu, card)

@@ -149,17 +149,18 @@ def _word(blob, a):
     return int.from_bytes(blob[a:a + 4].tobytes(), "little")
 
 
-def _decode_segment(blob, row_bytes, b, h, c0, t0, t1, word):
+def _decode_segment(src, at0, h, c0, t0, t1, word):
     """decode_segment: bytes t0 <= t < t1 of a chunk are columns c0 + t - t0
-    of row b; the bases from two aligned words, byte-swapped and shifted."""
+    of a row whose bases start at byte at0 of src; the bases from two
+    aligned words, byte-swapped and shifted."""
     p0 = c0 - 1 - t0
     lo, hi = max(t0, -p0), min(t1, h - p0)
     z = 0
     if lo < hi:
-        at = b * row_bytes + ((p0 + lo) >> 2)
+        at = at0 + ((p0 + lo) >> 2)
         a0 = at & ~3
-        x = (int.from_bytes(_word(blob, a0).to_bytes(4, "little"), "big") << 32) | int.from_bytes(
-            _word(blob, a0 + 4).to_bytes(4, "little"), "big")
+        x = (int.from_bytes(_word(src, a0).to_bytes(4, "little"), "big") << 32) | int.from_bytes(
+            _word(src, a0 + 4).to_bytes(4, "little"), "big")
         u0 = 4 * (at - a0) + ((p0 + lo) & 3)
         z = (((x << (2 * u0)) & _W64) >> (2 * lo)) >> 32
     seg = ((1 << t1) - 1) & ~((1 << t0) - 1)
@@ -171,35 +172,49 @@ def _decode_segment(blob, row_bytes, b, h, c0, t0, t1, word):
         word[k] = (word[k] & ~ms & _W32) | (ms & ((codes & mb) | (0x05050505 & ~mb & _W32)))
 
 
-def _model_decode(blob, B, Lp, n_cap, w, per=16):
-    """blob_decode_kernel (row b0 writes the 16-byte chunks of the flat
-    output that start in it, one segment per row a chunk touches), then
-    blob_n_scatter_kernel."""
-    Wd = 1 + Lp + w + 2
-    total = B * Wd
-    row_bytes = Lp // 4
-    hl = blob[B * row_bytes: B * row_bytes + 4 * B].view(np.int32)
-    out = np.full(-(-total // per) * per, 255, np.uint8)
-    written = np.zeros(len(out), np.int64)
-    for b0 in range(B):
-        r0 = b0 * Wd
-        for f0 in range(-(-r0 // per) * per, r0 + Wd, per):
-            nb = min(per, total - f0)
-            word = [0, 0, 0, 0]
-            b, c, t = b0, f0 - r0, 0
-            while t < nb:
-                ln = min(nb - t, Wd - c)
-                _decode_segment(blob, row_bytes, b, min(int(hl[b]), Lp), c, t, t + ln, word)
-                t, b, c = t + ln, b + 1, 0
-            for t in range(nb):
-                out[f0 + t] = (word[t >> 2] >> (8 * (t & 3))) & 0xFF
-                written[f0 + t] += 1
-    assert (written[:total] == 1).all()  # every byte once
-    out = out[:total].reshape(B, Wd)
-    for v in blob[B * Lp // 4 + 4 * B: B * Lp // 4 + 4 * B + 4 * n_cap].view(np.int32):
-        if 0 <= v < B * Lp:
-            out[v // Lp, 1 + v % Lp] = 4
-    return out
+def _model_gather(src, row_start, hl, buckets, n32, n64, w, per=16):
+    """blob_decode_kernel (per bucket, row b0 writes the 16-byte chunks of
+    the bucket's flat output that start in it, one segment per row a chunk
+    touches), then blob_n_scatter_kernel; outputs laid out as
+    syncmer_details.rows_layout says.  Returns each bucket's [B, Wd]."""
+    offs, size = SD.rows_layout(buckets, w)
+    out = np.full(size, 255, np.uint8)
+    written = np.zeros(size, np.int64)
+    for (row0, B, Lp), o in zip(buckets, offs):
+        Wd = 1 + Lp + w + 2
+        total = B * Wd
+        for b0 in range(B):
+            r0 = b0 * Wd
+            for f0 in range(-(-r0 // per) * per, r0 + Wd, per):
+                nb = min(per, total - f0)
+                word = [0, 0, 0, 0]
+                b, c, t = b0, f0 - r0, 0
+                while t < nb:
+                    ln = min(nb - t, Wd - c)
+                    r = row0 + b
+                    _decode_segment(src, int(row_start(r, Lp)), min(int(hl[r]), Lp), c, t, t + ln, word)
+                    t, b, c = t + ln, b + 1, 0
+                for t in range(nb):
+                    out[o + f0 + t] = (word[t >> 2] >> (8 * (t & 3))) & 0xFF
+                    written[o + f0 + t] += 1
+        assert (written[o:o + total] == 1).all()  # every byte once
+    for v in (n32 if n32 is not None else n64):
+        if v < 0:
+            continue
+        r, p = (v // buckets[0][2], v % buckets[0][2]) if n32 is not None else (v >> 32, v & 0xFFFFFFFF)
+        for (row0, B, Lp), o in zip(buckets, offs):
+            if row0 <= r < row0 + B:
+                if p < Lp:
+                    out[o + (r - row0) * (1 + Lp + w + 2) + 1 + p] = 4
+                break
+    return [out[o:o + B * (1 + Lp + w + 2)].reshape(B, -1) for o, (_r, B, Lp) in zip(offs, buckets)]
+
+
+def _model_decode(blob, B, Lp, n_cap, w):
+    """The kernels on the packed route's blob: row r at r*Lp/4, one bucket."""
+    hl = blob[B * Lp // 4: B * Lp // 4 + 4 * B].view(np.int32)
+    n32 = blob[B * Lp // 4 + 4 * B: B * Lp // 4 + 4 * B + 4 * n_cap].view(np.int32)
+    return _model_gather(blob, lambda r, lp: r * (lp // 4), hl, [(0, B, Lp)], n32, None, w)[0]
 
 
 @pytest.mark.parametrize("B,Lp,w", [(1, 16, 15), (3, 64, 18), (5, 48, 33), (2, 32, 20), (8, 4, 1)])
@@ -209,6 +224,111 @@ def test_model_of_decode_matches_plain(B, Lp, w):
     blob, n_cap = _blob(np.random.default_rng(B * Lp + w), B, Lp, min(w, Lp - 4), n_rate=0.05)
     ref = SD.decode_blob_plain(torch.from_numpy(blob), B, Lp, n_cap, w).numpy()
     assert np.array_equal(_model_decode(blob, B, Lp, n_cap, w), ref)
+
+
+def _unit(rng, lens, w, n_at=(), tail=16):
+    """A unit as the loader's key route lays it out (asm/reads.py:
+    _pack_stream): random reads of hoco lengths ``lens`` parsed into one
+    segment with Ns at the (read, position) pairs ``n_at``, packed into the
+    stream, rows ordered by length bucket.  Returns (stream, row_off, hl,
+    buckets, n_rows, codes per read, N positions per read)."""
+    from oatk_tpu_torch.asm.reads import _pack_stream
+
+    codes = [rng.integers(0, 4, n).astype(np.uint8) for n in lens]
+    offs = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    isn = np.array(sorted(int(offs[i]) + p for i, p in n_at), np.int64)
+    res = (None, None, offs, np.concatenate(codes + [np.zeros(0, np.uint8)]), None, isn)
+    sg = _pack_stream(res, w)
+    assert len(sg.stream) == 16 * (sum(-(-n // 64) for n in lens) + 1)
+    assert not sg.stream[len(sg.stream) - tail:].any() and (sg.row_off % 16 == 0).all()
+    order = np.argsort(sg.lp, kind="stable")
+    inv = np.empty(len(lens), np.int64)
+    inv[order] = np.arange(len(lens))
+    n_rows = (inv[sg.n_rows >> 32] << 32) | (sg.n_rows & 0xFFFFFFFF)
+    lp = sg.lp[order]
+    edges = np.flatnonzero(np.diff(lp)) + 1
+    buckets = [(int(a), int(b - a), int(lp[a])) for a, b in zip(np.append(0, edges), np.append(edges, len(lens)))]
+    per_read_n = [[p for i2, p in n_at if i2 == i] for i in range(len(lens))]
+    return (sg.stream, sg.row_off[order], sg.hl[order], buckets, n_rows,
+            [codes[i] for i in order], [per_read_n[i] for i in order])
+
+
+# hoco lengths across the bucket edges (512, 1024, 2048, 4096, 6144), one
+# of exactly its Lp, reads shorter than w+4, an empty read
+UNIT_LENS = [513, 512, 3, 0, 1024, 1025, 54, 4096, 4097, 6144, 2047, 2049, 700, 55]
+
+
+@pytest.mark.parametrize("w", [51, 15])
+@pytest.mark.parametrize("lens", [UNIT_LENS, [77], [4096]])
+def test_decode_rows_plain_matches_blob(w, lens):
+    """The row gather's plain version equals decode_blob_plain on the same
+    reads laid out as each bucket's padded blob: Ns at a read's first and
+    last base, lengths across bucket edges, a read of exactly Lp, reads
+    shorter than w+4, a unit of one read."""
+    rng = np.random.default_rng(len(lens) * 100 + w)
+    n_at = [(i, p) for i, n in enumerate(lens) if n for p in sorted({0, n - 1, n // 3})]
+    stream, row_off, hl, buckets, n_rows, codes, n_pos = _unit(rng, lens, w, n_at)
+    got = SD.decode_rows_plain(torch.from_numpy(stream), torch.from_numpy(row_off),
+                               torch.from_numpy(hl), buckets, torch.from_numpy(n_rows), w)
+    assert len(got) == len(buckets) == len({b[2] for b in buckets})
+    for (row0, B, Lp), cp in zip(buckets, got):
+        blob, packed, hl_v, n_cap = chunk_blob(
+            B, Lp, np.array([b * Lp + p for b in range(B) for p in n_pos[row0 + b]], np.int64))
+        for b in range(B):
+            c = codes[row0 + b]
+            packed[b, :(len(c) + 3) // 4] = pack_hoco(c)
+            hl_v[b] = len(c)
+        want = SD.decode_blob_plain(torch.from_numpy(blob), B, Lp, n_cap, w)
+        assert torch.equal(cp, want), (row0, B, Lp)
+        body = cp[:, 1:1 + Lp].numpy()
+        for b in range(B):
+            assert (body[b, n_pos[row0 + b]] == 4).all()
+
+
+@pytest.mark.parametrize("w", [51, 15, 1001])
+def test_model_of_decode_rows_matches_plain(w):
+    """The kernels' index arithmetic on the loader's stream: rows at their
+    16-aligned offsets, several buckets in one launch, N entries of every
+    bucket; every word they load lies inside the stream."""
+    rng = np.random.default_rng(w)
+    lens = [int(n) for n in rng.integers(0, 700, 9)] + [3, 64, 65, 512, 513]
+    n_at = [(i, int(p)) for i, n in enumerate(lens) if n > 3 for p in rng.integers(0, n, 2)]
+    stream, row_off, hl, buckets, n_rows, _c, _n = _unit(rng, lens, w, n_at)
+    stream = stream.copy()
+    want = SD.decode_rows_plain(torch.from_numpy(stream), torch.from_numpy(row_off),
+                                torch.from_numpy(hl), buckets, torch.from_numpy(n_rows), w)
+    got = _model_gather(stream, lambda r, lp: row_off[r], hl, buckets, None, n_rows, w)
+    for g, ww in zip(got, want):
+        assert np.array_equal(g, ww.numpy())
+
+
+def test_decode_rows_wrapper():
+    """On the CPU the row gather takes the plain version and launches
+    nothing; its checks refuse bad tables."""
+    rng = np.random.default_rng(3)
+    stream, row_off, hl, buckets, n_rows, _c, _n = _unit(rng, [600, 1500, 90], 51, [(1, 7)])
+    args = [torch.from_numpy(a) for a in (stream, row_off, hl)]
+    nr = torch.from_numpy(n_rows)
+    before = SD.decode_rows.launches
+    got = SD.decode_rows(*args, buckets, nr, 51)
+    want = SD.decode_rows_plain(*args, buckets, nr, 51)
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and SD.decode_rows.launches == before
+    offs, size = SD.rows_layout(buckets, 51)
+    assert offs[0] == 0 and all(o % 16 == 0 for o in offs) and size >= sum(c.numel() for c in got)
+    with pytest.raises(TypeError):
+        SD.decode_rows(args[0].int(), *args[1:], buckets, nr, 51)  # stream not uint8
+    with pytest.raises(TypeError):
+        SD.decode_rows(args[0], args[1].int(), args[2], buckets, nr, 51)  # row_off not int64
+    with pytest.raises(TypeError):
+        SD.decode_rows(*args, buckets, nr.int(), 51)  # N entries not int64
+    with pytest.raises(ValueError):
+        SD.decode_rows(args[0], args[1][:2], args[2], buckets, nr, 51)  # tables of two lengths
+    with pytest.raises(ValueError):
+        SD.decode_rows(*args, [(2, 2, 512)], nr, 51)  # rows past the table
+    with pytest.raises(ValueError):
+        SD.decode_rows(*args, [(0, 1, 514)], nr, 51)  # Lp not a multiple of 4
+    with pytest.raises(ValueError):  # neither CPU nor CUDA: refused, never computed
+        SD.decode_rows(*(a.to("meta") for a in args), buckets, nr.to("meta"), 51)
 
 
 def _tile_ranks(codes):
@@ -593,6 +713,36 @@ def test_cuda_decode_matches_plain(B, Lp, w, n_rate):
     torch.cuda.synchronize()
     assert SD.decode_blob.launches == before + (2 if n_cap else 1)
     assert torch.equal(got, SD.decode_blob_plain(bt, B, Lp, n_cap, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [51, 1001])
+@pytest.mark.parametrize("lens", [UNIT_LENS, [77], [12001, 9000, 15000, 33]])
+def test_cuda_decode_rows_matches_plain(w, lens):
+    """The row gather on the card equals its plain version on the loader's
+    streams, Ns included, with units of odd sizes; a launch of more
+    buckets than one launch takes cuts them into launches."""
+    _card()
+    rng = np.random.default_rng(len(lens) + w)
+    n_at = [(i, int(p)) for i, n in enumerate(lens) if n for p in {0, n - 1, n // 2}]
+    for n_at_ in (n_at, []):
+        stream, row_off, hl, buckets, n_rows, _c, _n = _unit(rng, lens, w, n_at_)
+        args = [torch.from_numpy(a).cuda() for a in (stream, row_off, hl, n_rows)]
+        before = SD.decode_rows.launches
+        got = SD.decode_rows(*args[:3], buckets, args[3], w)
+        torch.cuda.synchronize()
+        assert SD.decode_rows.launches == before + (2 if n_at_ else 1)
+        want = SD.decode_rows_plain(*args[:3], buckets, args[3], w)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    many = [(r, 1, 512) for r in range(36)]  # 36 buckets: two launches
+    hl = torch.full((36,), 500, dtype=torch.int32, device="cuda")
+    ro = torch.arange(36, device="cuda") * 128
+    st = torch.from_numpy(np.random.default_rng(1).integers(0, 256, 36 * 128 + 16).astype(np.uint8)).cuda()
+    nr = torch.tensor([(1 << 32) | 5, (33 << 32) | 499], device="cuda")
+    got = SD.decode_rows(st, ro, hl, many, nr, 15)
+    want = SD.decode_rows_plain(st, ro, hl, many, nr, 15)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -10,17 +10,12 @@ time:
 
 The reads are ``--fa``, by default ``build/chip_smoke/set_110mbp.fa``
 under the current directory, made with the 110 Mbp recipe of the
-``chip_smoke.py`` beside this file when it is absent.  Two measurements,
-each after two warm-up runs:
-
-- N loader runs, each with ``load.extract`` and the summed host time of
-  the chunks' uploads (``Uploads.put``) and appends
-  (``DevCountState.append``), split into the chunks queued while a parse
-  worker was still running and those queued after the last one had
-  finished;
-- N times the same chunks queued alone (parsed and packed beforehand,
-  no worker running): the host time of the puts and appends, and the
-  wait of the one n_sel read that follows.
+``chip_smoke.py`` beside this file when it is absent.  After two warm-up
+runs, N loader runs, each with ``load.extract`` and the summed host time
+of the uploads (``Uploads.put``) and of the count's appends
+(``DevCountState._commit``, which every append passes through), split
+into those queued while a parse worker was still running and those
+queued after the last one had finished.
 """
 from __future__ import annotations
 
@@ -41,7 +36,6 @@ def main() -> int:
     ap.add_argument("--runs", type=int, default=8)
     args = ap.parse_args()
 
-    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -58,14 +52,13 @@ def main() -> int:
         made, _ = smoke.dataset_110mbp(os.path.dirname(fa))
         os.replace(made, fa)
 
-    from oatk_tpu_torch import native
     from oatk_tpu_torch.asm import reads as R
     from oatk_tpu_torch.index.devcount import DevCountState
 
     print(f"[loadq] {smoke.card_line()}", flush=True)
     ends: list = []
     spans: list = []  # (kind, host start, host end)
-    real_pp, real_put, real_app = R._parse_pack_segment, R.Uploads.put, DevCountState.append
+    real_pp, real_put, real_app = R._parse_pack_segment, R.Uploads.put, DevCountState._commit
 
     def parse_pack(*a, **kw):
         r = real_pp(*a, **kw)
@@ -82,7 +75,7 @@ def main() -> int:
 
     R._parse_pack_segment = parse_pack
     R.Uploads.put = timed("put", real_put)
-    DevCountState.append = timed("append", real_app)
+    DevCountState._commit = timed("append", real_app)
     rows = []
     for i in range(args.runs + 2):
         ends.clear()
@@ -103,43 +96,12 @@ def main() -> int:
         return 1000 * statistics.median(r[key] for r in rows)
 
     print(f"[loadq] loader, median of {len(rows)} runs: load.extract {med('extract'):.2f} ms; "
-          f"chunks queued while a parse worker ran {statistics.median(r['n_during'] for r in rows)}: "
+          f"uploads and appends queued while a parse worker ran {statistics.median(r['n_during'] for r in rows)}: "
           f"put {med('put_during'):.2f} ms, append {med('append_during'):.2f} ms; queued after "
           f"the last worker {statistics.median(r['n_after'] for r in rows)}: put "
           f"{med('put_after'):.2f} ms, append {med('append_after'):.2f} ms", flush=True)
 
-    R._parse_pack_segment, R.Uploads.put, DevCountState.append = real_pp, real_put, real_app
-    data = open(fa, "rb").read()
-    cuts = native.fasta_record_cuts(data, max(1, len(data) // R._SEG_BYTES))
-    bounds = [(0, len(data))] if cuts is None else list(zip(cuts[:-1], cuts[1:]))
-    codes, rl = np.empty(len(data), np.uint8), np.empty(len(data), np.uint8)
-    chunks, sid = [], 0
-    for c0, c1 in bounds:
-        res, cs = R._parse_pack_segment(data, c0, c1, K, S, 32 << 20, (codes[c0:c1], rl[c0:c1]))
-        chunks += [(c, np.asarray(c[0], np.int64) + sid) for c in cs]
-        sid += len(res[0])
-    alone = []
-    for i in range(args.runs + 2):
-        st, up, pending = DevCountState("cuda"), R.Uploads("cuda"), []
-        torch.cuda.synchronize()
-        t_put = t_app = 0.0
-        for (_chunk, B, Lp, max_out, n_cap, blob), sids in chunks:
-            t0 = time.perf_counter()
-            blob_d, sids_d = up.put(blob, sids)
-            t1 = time.perf_counter()
-            _off, n_sel = st.append(blob_d, B, Lp, n_cap, K, S, max_out, sids_d)
-            up.done()
-            t_app += time.perf_counter() - t1
-            t_put += t1 - t0
-            pending.append(n_sel)
-        t2 = time.perf_counter()
-        torch.cat(pending).cpu()
-        if i >= 2:
-            alone.append((t_put, t_app, time.perf_counter() - t2))
-    print(f"[loadq] {len(chunks)} chunks queued alone, median of {len(alone)}: put "
-          f"{1000 * statistics.median(a for a, _, _ in alone):.2f} ms, append "
-          f"{1000 * statistics.median(b for _, b, _ in alone):.2f} ms; the one n_sel read then "
-          f"waits {1000 * statistics.median(c for _, _, c in alone):.2f} ms", flush=True)
+    R._parse_pack_segment, R.Uploads.put, DevCountState._commit = real_pp, real_put, real_app
     return 0
 
 
