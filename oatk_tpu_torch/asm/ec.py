@@ -21,7 +21,7 @@ from ..index.syncmer_db import SyncmerDB
 from ..kernels import wavefront as _wf
 from ..kernels.wavefront import WfState, wf_ed_core
 from ..utils import log_info
-from ..utils.trace import span
+from ..utils.trace import book, span
 from .reads import ReadDB
 from .scg import Scg
 
@@ -549,19 +549,37 @@ def _correct_reads_lockstep_native(
     as one ragged launch on ``device`` (the plain version on the CPU); at
     most ``EC_INFLIGHT`` reads in flight.  The same extensions, rounds
     and results as :func:`_correct_reads_lockstep`; ``smem_limit`` and
-    ``force_global`` choose the items' kernel routes (for tests)."""
+    ``force_global`` choose the items' kernel routes (for tests).
+
+    Spans: ``inputs`` (the flats), ``lockstep`` (the C handle),
+    ``wf`` (the rounds) with the rounds' split summed as its children
+    ``layout``, ``pack``, ``trip`` and ``unpack`` (the seconds that
+    ``wf_ed_lockstep`` times anyway: no span per round), ``finish`` (the
+    outputs, and the handle's one release on every way out) and
+    ``splice``."""
     from .. import native
     from ..kernels.wf_ed import wf_ed_lockstep
     from .ec_lockstep import Lockstep
 
-    x = _ec_inputs(read_db, scg)
-    with Lockstep(*x.graph, x.kflat, x.mflat, x.moff, x.code_flat, x.hoff, x.hoco_l,
-                  read_db.k, max_edist, inflight=EC_INFLIGHT or 0,
-                  n_threads=native.n_threads_default(), **x.lazy) as ls:
-        wf_ed_lockstep(ls, device, smem_limit, force_global)
-        part = ls.finish()
-        read_error_correction.wf_calls += ls.extensions()
-    _splice(read_db, scg, stats, [part])
+    with span("inputs"):
+        x = _ec_inputs(read_db, scg)
+    with span("lockstep"):
+        ls = Lockstep(*x.graph, x.kflat, x.mflat, x.moff, x.code_flat, x.hoff, x.hoco_l,
+                      read_db.k, max_edist, inflight=EC_INFLIGHT or 0,
+                      n_threads=native.n_threads_default(), **x.lazy)
+    try:
+        with span("wf"):
+            split = wf_ed_lockstep(ls, device, smem_limit, force_global)
+            for key in ("layout", "pack", "trip", "unpack"):
+                book(key, split[key + "_s"])
+        with span("finish"):
+            part = ls.finish()
+            read_error_correction.wf_calls += ls.extensions()
+    finally:
+        with span("finish"):
+            ls.close()
+    with span("splice"):
+        _splice(read_db, scg, stats, [part])
 
 
 def update_syncmer_db(read_db: ReadDB, scm_db: SyncmerDB):
@@ -637,7 +655,8 @@ def read_error_correction(
     cpu0, real0 = time.process_time(), time.time()
     sys.setrecursionlimit(1_000_000)
     scg._kmer_size = read_db.k
-    find_error_syncmers(scg, err_mer_c, max_err_c, err_arc_c, max_arc_f, True)
+    with span("find"):
+        find_error_syncmers(scg, err_mer_c, max_err_c, err_arc_c, max_arc_f, True)
 
     stats = np.zeros(11, np.int64)
     # read sharding over processes: each process corrects its contiguous
@@ -676,7 +695,8 @@ def read_error_correction(
                         wf_ed_core(st)
             read_db.version += 1  # reads were spliced in place
 
-    update_syncmer_db(read_db, scg.scm_db)
+    with span("update"):
+        update_syncmer_db(read_db, scg.scm_db)
 
     # summary table exactly as syncerr.c:905-927; note the reference
     # labels AMBISNQ (path) counts "ambiguous seqs" and vice versa --

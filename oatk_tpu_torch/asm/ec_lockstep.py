@@ -70,6 +70,8 @@ def _load():
                 lib.ecl_finish.argtypes = [_P, _P, _P, _P, _P, _P, _I]
                 lib.ecl_extensions.restype = _I
                 lib.ecl_extensions.argtypes = [_P]
+                lib.ecl_work.restype = None
+                lib.ecl_work.argtypes = [_P, _P]
                 _lib = lib
     return _lib
 
@@ -196,3 +198,13 @@ class Lockstep:
     def extensions(self) -> int:
         """The wavefront extensions made so far (items applied)."""
         return int(self._lib.ecl_extensions(self._h))
+
+    def work(self) -> tuple:
+        """The kernel's work over the items this handle applied, from each
+        item's meta in and out_meta alone (any kernel that keeps the
+        contract reads the same): the target and query bases (sum of tl +
+        ql), the diagonals of the waves in and out (sums of n), and the
+        wave cells, sum of (score out - score in) x (n in + n out) / 2."""
+        w = np.zeros(4, np.int64)
+        self._lib.ecl_work(self._h, w.ctypes.data)
+        return int(w[0]), int(w[1]), int(w[2]), int(w[3]) / 2.0

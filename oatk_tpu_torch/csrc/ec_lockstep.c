@@ -29,7 +29,8 @@
  *               each item's k, ts and qs) as kernels/wf_ed.py:pack_round
  *               does, with every padding byte zero;
  *   ecl_unpack  apply each item's out_meta and out_k (t_end/q_end +1 after
- *               a hit, else 0), or name the first item whose err is set.
+ *               a hit, else 0), or name the first item whose err is set;
+ *               it also counts the kernel's work (ecl_work).
  *
  * ecl_finish then gives native/ec.c:ec_correct_reads's outputs.  Reads
  * run independently (the graph is read-only during EC), so resuming,
@@ -234,6 +235,7 @@ struct ecl {
     i64 B, in_words, out_words;
     int laid;
     i64 extensions;
+    i64 work[4]; /* the kernel's work: see ecl_work */
     /* threads and their slabs (worker 0 is the calling thread) */
     crew_t crew;
     helper_arg_t helper[MAX_THREADS];
@@ -909,6 +911,15 @@ i64 ecl_unpack(ecl_t *L, const i32 *src) {
     if (!L->laid) return ECL_STATE;
     for (i64 i = 0; i < L->B; ++i)
         if (src[L->lay[i].om + 6]) return i;
+    for (i64 i = 0; i < L->B; ++i) {
+        /* the item's meta in as ecl_pack wrote it, before it is applied */
+        const rd_t *R = L->live[i];
+        const i32 *om = src + L->lay[i].om;
+        L->work[0] += R->tl + R->c_seq.n;
+        L->work[1] += R->n;
+        L->work[2] += om[2];
+        L->work[3] += ((i64)om[0] - R->score) * (R->n + om[2]);
+    }
     par_t p;
     memset(&p, 0, sizeof(p));
     p.fn = unpack_one;
@@ -959,4 +970,13 @@ i64 ecl_finish(const ecl_t *L, i64 *stats, u64 *out_kmer, u32 *out_mpos,
 /* the extensions made: items applied */
 i64 ecl_extensions(const ecl_t *L) {
     return L->extensions;
+}
+
+/* The kernel's work over the items applied, from each item's meta in and
+ * out_meta alone: out[0] the target and query bases (sum of tl + ql),
+ * out[1] and out[2] the diagonals of the waves in and out (sums of n),
+ * out[3] twice the wave cells, sum of (score out - score in) x (n in +
+ * n out). */
+void ecl_work(const ecl_t *L, i64 *out) {
+    for (int j = 0; j < 4; ++j) out[j] = L->work[j];
 }

@@ -90,10 +90,15 @@
 //                          for more than 32 blocks the warp loops in
 //                          strides of 32.  The grid holds a few tail blocks
 //                          beyond the tiles: they wait until every tile has
-//                          published, write the exact n_sel and the lanes
-//                          from min(n_sel, max_out) to max_out, and zero the
-//                          status words and counters for the next call (no
-//                          memset per call).
+//                          published, each reads the exact n_sel from the
+//                          last tile's status word, writes its share of the
+//                          lanes from min(n_sel, max_out) to max_out, and
+//                          zeroes its share of the other status words; the
+//                          last tail block to finish zeroes the last tile's
+//                          word and the counters for the next call (no
+//                          memset per call).  A tail block may start after
+//                          the others have finished, so that word outlives
+//                          every tail block's read of it.
 // Two outputs: the packed int64 [3, max_out+1] (rows flat<<1|z, payload,
 // hash; slot [0, max_out] the exact n_sel; lanes from min(n_sel, max_out) on
 // zero), or the device count's five key lanes of max_out entries: hash, low
@@ -472,9 +477,12 @@ __device__ void look_back(const uint64_t* status, long long t, long long row_fir
 
 // A tail block of the one-launch K4 (z of Z): once every tile has published
 // its inclusive prefix (then no tile reads a status word any more), the
-// exact n_sel, the lanes past min(n_sel, max_out), and the status words and
-// counters zeroed; the last tail block to finish zeroes the counters (every
-// block has taken its ticket by then).
+// exact n_sel from the last tile's word, the lanes past min(n_sel, max_out),
+// and the other status words zeroed.  The last tail block to finish zeroes
+// the last tile's word and the counters: every tail block has read that word
+// and every block has taken its ticket by then.  Were the word zeroed with
+// the others, a tail block that starts late would read an n_sel of 0 and
+// mark its share of the selected lanes invalid.
 __device__ void tail_block(long long z, long long Z, long long n_tiles, uint64_t* status,
                            unsigned* ctr, const Out& o) {
   __shared__ long long s_n;
@@ -489,11 +497,12 @@ __device__ void tail_block(long long z, long long Z, long long n_tiles, uint64_t
   if (z == 0 && threadIdx.x == 0) put_count(o, n_sel);
   const long long gt = z * kThreads + threadIdx.x, nt = Z * kThreads;
   for (long long j = n_eff + gt; j < o.max_out; j += nt) put_tail(o, j, n_eff);
-  for (long long i = gt; i < n_tiles; i += nt) status[i] = 0;
+  for (long long i = gt; i < n_tiles - 1; i += nt) status[i] = 0;
   __syncthreads();
   if (threadIdx.x == 0) {
     __threadfence();
     if (atomicAdd(ctr + 2, 1u) == static_cast<unsigned>(Z - 1)) {
+      if (n_tiles) status[n_tiles - 1] = 0;
       ctr[0] = 0;
       ctr[1] = 0;
       ctr[2] = 0;

@@ -476,6 +476,9 @@ def unpack_round(o: np.ndarray, lay: RoundLayout, states) -> None:
             st.q_end = 0
 
 
+WORK_KEYS = ("seq_bytes", "wave_in", "wave_out", "wave_cells")
+
+
 class _Buffers:
     """Reused host (pinned for a card) and device buffers of one device."""
 
@@ -567,9 +570,9 @@ def wf_ed_lockstep(driver, device, smem_limit: int | None = None, force_global: 
     items per round, bytes uploaded and read back, host seconds in
     layout, pack (with growing the buffers), the round trip (upload,
     launch, read-back, synchronise) and unpack, items on the global
-    route; with ``wf_ed_lockstep.events``
-    set on a card, the upload, kernel and read-back device times in ms
-    (CUDA events)."""
+    route, the kernel's work as ``driver.work()`` counts it
+    (``WORK_KEYS``); with ``wf_ed_lockstep.events`` set on a card, the
+    upload, kernel and read-back device times in ms (CUDA events)."""
     dev = _device_of(device)
     buf = _bufs.get(dev)
     if buf is None:
@@ -580,7 +583,7 @@ def wf_ed_lockstep(driver, device, smem_limit: int | None = None, force_global: 
     timed = card and wf_ed_lockstep.events
     split = dict(rounds=0, items=[], in_bytes=0, out_bytes=0, n_global=0, layout_s=0.0,
                  pack_s=0.0, trip_s=0.0, unpack_s=0.0, upload_ms=0.0, kernel_ms=0.0,
-                 readback_ms=0.0)
+                 readback_ms=0.0, seq_bytes=0, wave_in=0, wave_out=0, wave_cells=0.0)
     wf_ed_lockstep.last = split
     clock = time.perf_counter
     while True:
@@ -589,6 +592,7 @@ def wf_ed_lockstep(driver, device, smem_limit: int | None = None, force_global: 
         t1 = clock()
         split["layout_s"] += t1 - t0
         if shape.B == 0:
+            split.update(zip(WORK_KEYS, driver.work()))
             return split
         buf.ensure(shape.in_words, shape.out_words, shape.scratch_words)
         h_in, h_out = buf.h_in[: shape.in_words], buf.h_out[: shape.out_words]

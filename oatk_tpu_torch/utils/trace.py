@@ -11,6 +11,8 @@ nothing.
 
 :func:`add` books busy seconds summed on worker threads under
 ``<span>_workers.<name>``, a key that no span's children take in.
+:func:`book` books seconds that the caller timed itself (summed over a
+loop that a span per pass would slow) as the child ``<span>.<name>``.
 
 While a ``torch.profiler`` session runs, each span also enters
 ``torch.profiler.record_function`` under its key from the outermost
@@ -99,6 +101,15 @@ def add(name: str, seconds: float) -> None:
     for sink, base in st.sinks:
         own = ".".join(st.path[base:])
         key = f"{own}{_WORKERS}.{name}" if own else name
+        sink[key] = sink.get(key, 0.0) + seconds
+
+
+def book(name: str, seconds: float) -> None:
+    """Book ``seconds`` as the child ``name`` of the open span, as a span
+    of that name inside it would have."""
+    st = _stack
+    for sink, base in st.sinks:
+        key = ".".join(st.path[base:] + [name])
         sink[key] = sink.get(key, 0.0) + seconds
 
 

@@ -609,6 +609,73 @@ def test_model_look_back_in_any_order(seed):
     assert np.array_equal(idx, np.arange(len(fb)) - first)
 
 
+def _model_tail_blocks(status, n_tiles, max_out, Z, rng, late, nt=8):
+    """sel_tiles_kernel's tail blocks once every tile has published, their
+    steps interleaved at random and block ``late`` started after all the
+    others have finished: each reads n_sel from the last tile's word,
+    writes its lanes from min(n_sel, max_out) on (``nt`` threads a block)
+    and zeroes its share of the other status words; the last to finish
+    zeroes the last tile's word and the counters.  Returns the n_sel each
+    block read, how often each lane was written, the counters."""
+    ctr = [n_tiles + Z, n_tiles, 0]
+    read = [None] * Z
+    writes = np.zeros(max_out, np.int64)
+
+    def run(z):
+        n_sel = status[n_tiles - 1] & _INCL_MASK if n_tiles else 0
+        read[z] = n_sel
+        yield
+        n_eff = min(n_sel, max_out)
+        for j in range(n_eff + z * nt, max_out, Z * nt):
+            for t in range(nt):
+                if j + t < max_out:
+                    writes[j + t] += 1
+        yield
+        for i in range(z * nt, n_tiles - 1, Z * nt):
+            for t in range(nt):
+                if i + t < n_tiles - 1:
+                    status[i + t] = 0
+        yield
+        ctr[2] += 1
+        if ctr[2] == Z:
+            if n_tiles:
+                status[n_tiles - 1] = 0
+            ctr[:] = [0, 0, 0]
+
+    live = {z: run(z) for z in range(Z) if z != late}
+    while live:
+        z = int(rng.choice(list(live)))
+        try:
+            next(live[z])
+        except StopIteration:
+            del live[z]
+    for _ in run(late):
+        pass
+    return read, writes, ctr
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("n_tiles,n_sel,max_out", [(1, 5, 40), (3, 70, 75), (40, 300, 1000),
+                                                    (9, 600, 500), (0, 0, 64)])
+def test_model_tail_blocks_read_n_sel_whatever_their_order(seed, n_tiles, n_sel, max_out):
+    """Every tail block reads the exact n_sel, even one that starts after
+    the others have zeroed their status words; the lanes from
+    min(n_sel, max_out) to max_out are written once and no selected lane
+    at all; the status words and counters end zero for the next call."""
+    rng = np.random.default_rng(seed)
+    Z = min(max(-(-max_out // (8 * 8)), 1), 264)
+    status = [_FLAG_INCL | int(rng.integers(0, 1 << 20)) for _ in range(n_tiles)]
+    if n_tiles:
+        status[-1] = _FLAG_INCL | (7 << _AGG_SHIFT) | n_sel
+    for late in {0, Z - 1, int(rng.integers(0, Z))}:
+        st = list(status)
+        read, writes, ctr = _model_tail_blocks(st, n_tiles, max_out, Z, rng, late)
+        n = min(n_sel, max_out)
+        assert read == [n_sel] * Z, late
+        assert (writes[:n] == 0).all() and (writes[n:] == 1).all(), late
+        assert st == [0] * n_tiles and ctr == [0, 0, 0], late
+
+
 @pytest.mark.parametrize("w,s", [(15, 5), (51, 11), (1001, 31)])
 def test_model_of_key_lanes_matches_plain(w, s):
     """The key epilogue: every lane of the five buffers, those past n
@@ -762,6 +829,39 @@ def test_cuda_details_match_plain(w, s):
         torch.cuda.synchronize()
         assert SD.selected_details.launches == before + SD.DETAILS_LAUNCHES
         assert torch.equal(got, SD.selected_details_plain(cp, sel, w, s, max_out)), max_out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w,s,B,Lp,spare", [(15, 5, 200, 16384, 64), (1001, 31, 300, 15360, 4096)])
+def test_cuda_every_selected_lane_stays_valid(w, s, B, Lp, spare):
+    """K4 on the key route, launch after launch on one stream (the status
+    words and counters reused): many tail blocks over few tiles, so a tail
+    block often starts after the others have finished.  Every launch
+    marks exactly n_sel lanes valid, and its lanes equal the first
+    launch's."""
+    _card()
+    from oatk_tpu_torch.kernels.syncmer_select import syncmer_select
+
+    blob, n_cap = _blob(np.random.default_rng(B), B, Lp, w)
+    cp = SD.decode_blob_plain(torch.from_numpy(blob), B, Lp, n_cap, w).cuda()
+    sel = syncmer_select(cp, w, s)
+    n = int((sel != 0).sum())
+    max_out = n + spare
+    sids = torch.arange(B, dtype=torch.int64, device="cuda")
+
+    def bufs():
+        return [torch.full((max_out,), -1, dtype=torch.int64, device="cuda") for _ in range(4)] + [
+            torch.ones(max_out, dtype=torch.int32, device="cuda")]
+
+    first = bufs()
+    assert int(SD.selected_keys(cp, sel, w, s, max_out, sids, first, 0)[0]) == n
+    keys = bufs()
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    for _ in range(2000):
+        n_d = SD.selected_keys(cp, sel, w, s, max_out, sids, keys, 0)
+        bad += ((keys[4] == 0).sum() != n_d[0]).to(torch.int64)
+    assert int(bad) == 0
+    assert all(torch.equal(a, b) for a, b in zip(keys, first))
 
 
 @pytest.mark.cuda
