@@ -429,14 +429,19 @@ def _splice(read_db: ReadDB, scg: Scg, stats: np.ndarray, parts: list) -> None:
         else None
     )
     smer_all = scg.scm_db.s[(out_kmer >> np.uint64(1)).astype(np.int64)]
-    for r_i, r in enumerate(reads):
-        if not out_upd[r_i]:
-            continue
-        lo, hi = int(out_cut[r_i]), int(out_cut[r_i + 1])
-        # views: per-read syncmer arrays are never written in place
-        r.k_mer = out_kmer[lo:hi]
-        r.m_pos = out_mpos[lo:hi]
-        r.s_mer = smer_all[lo:hi]
+    # the native loader's reads take the merged whole-run flats below as
+    # one set of their table, with no loop over the reads
+    table = read_db.table
+    whole = table is not None and old_rf is not None and old_rf._sflat is not None
+    if not whole:
+        for r_i, r in enumerate(reads):
+            if not out_upd[r_i]:
+                continue
+            lo, hi = int(out_cut[r_i]), int(out_cut[r_i + 1])
+            # views: per-read syncmer arrays are never written in place
+            r.k_mer = out_kmer[lo:hi]
+            r.m_pos = out_mpos[lo:hi]
+            r.s_mer = smer_all[lo:hi]
     read_db.version += 1
     if old_rf is not None:
         # merge corrected spans into fresh whole-run flats and register
@@ -463,6 +468,8 @@ def _splice(read_db: ReadDB, scg: Scg, stats: np.ndarray, parts: list) -> None:
             new_sflat = np.empty(total_new, np.uint64)
             new_sflat[mask] = smer_all[src_idx[mask]]
             new_sflat[inv] = old_rf._sflat[src_idx[inv]]
+        if whole:
+            table.set_syncmers(np.append(noff, total_new), new_mflat, new_sflat, new_kflat)
         set_read_flats(read_db, nl, new_kflat, new_mflat, new_sflat, old_rf.sids)
 
 

@@ -43,7 +43,9 @@ class ReadDB:
 
     k: int  # k-mer size (hoco bases); reference's 'w'
     s: int  # s-mer size
-    reads: list[ReadSyncmers] = field(default_factory=list)
+    # ReadSyncmers, or on the native loader's routes LoadedRead records
+    # whose arrays resolve from ``table``
+    reads: list = field(default_factory=list)
     stats: dict = field(default_factory=dict)
     version: int = 0  # bumped whenever read arrays mutate (EC)
     # whole-run hoco streams in sid order (set by the native loader;
@@ -57,6 +59,7 @@ class ReadDB:
     # global stream position (the reference's ho_l_rl overflow list)
     rl_ovf_pos: np.ndarray | None = None  # int64 global hoco positions
     rl_ovf_len: np.ndarray | None = None  # int64 exact run-length-1
+    table: ReadTable | None = None  # the native loader's records' arrays
 
     @property
     def n(self) -> int:
@@ -64,6 +67,132 @@ class ReadDB:
 
     def total_syncmers(self) -> int:
         return sum(len(r.m_pos) for r in self.reads)
+
+
+READ_FIELDS = ("hoco_code", "ho_rl", "is_n", "m_pos", "s_mer", "k_mer")
+
+
+class ReadTable:
+    """The whole-run arrays that one run's :class:`LoadedRead` records
+    resolve their array fields from, indexed by sid.  The loader sets the
+    hoco flats, ``hoco_off`` and the sorted N positions in the same
+    coordinates (``isn_pos``) once its reads are assembled; the device
+    count sets the syncmer flats and their per-read offsets ``moff``
+    (:meth:`set_syncmers`).  ``views`` counts the views made from it, by
+    field, over the run."""
+
+    __slots__ = ("hoco_flat", "rl_flat", "hoco_off", "isn_pos",
+                 "moff", "m_pos", "s_mer", "k_mer", "gen", "views")
+
+    def __init__(self):
+        self.hoco_flat = self.rl_flat = self.hoco_off = self.isn_pos = None
+        self.moff = self.m_pos = self.s_mer = self.k_mer = None
+        self.gen = 0  # syncmer sets so far
+        self.views = dict.fromkeys(READ_FIELDS, 0)
+
+    def set_syncmers(self, moff, m_pos, s_mer, k_mer) -> None:
+        """Read i's m_pos/s_mer/k_mer become slices [moff[i], moff[i+1])
+        of these flats, over any value a record held or was assigned
+        before."""
+        self.moff, self.m_pos, self.s_mer, self.k_mer = moff, m_pos, s_mer, k_mer
+        self.gen += 1
+
+
+def _hoco_field(name, make):
+    """The LoadedRead hoco field ``name``: the value assigned, else
+    ``make(table, read)``, made on first access and kept."""
+    slot = "_" + name
+
+    def get(self):
+        try:
+            return getattr(self, slot)
+        except AttributeError:
+            v = make(self._t, self)
+            setattr(self, slot, v)
+            self._t.views[name] += 1
+            return v
+
+    def set_(self, v):
+        setattr(self, slot, v)
+
+    return property(get, set_)
+
+
+def _hoco_window(flat):
+    def make(t, r):
+        o0 = int(t.hoco_off[r.sid])
+        return getattr(t, flat)[o0 : o0 + r.hoco_l]
+    return make
+
+
+def _is_n_window(t, r):
+    """A read's dense N flags from the table's sparse N positions (the
+    shared all-False view for an N-free read)."""
+    o0 = int(t.hoco_off[r.sid])
+    lo, hi = np.searchsorted(t.isn_pos, (o0, o0 + r.hoco_l))
+    if hi == lo:
+        return _false_view(r.hoco_l)
+    v = np.zeros(r.hoco_l, bool)
+    v[t.isn_pos[lo:hi] - o0] = True
+    return v
+
+
+def _syncmer_field(name):
+    """The LoadedRead syncmer field ``name``: None before the table's
+    first :meth:`ReadTable.set_syncmers`; then the value assigned since
+    the latest set, else the read's slice of the table's flat, made on
+    first access and kept.  The slot holds (table generation, value), so
+    a set outdates every value held before it without a loop over the
+    reads."""
+    slot = "_" + name
+
+    def get(self):
+        t = self._t
+        try:
+            gen, v = getattr(self, slot)
+            if gen == t.gen:
+                return v
+        except AttributeError:
+            pass
+        if not t.gen:
+            return None
+        v = getattr(t, name)[t.moff[self.sid] : t.moff[self.sid + 1]]
+        setattr(self, slot, (t.gen, v))
+        t.views[name] += 1
+        return v
+
+    def set_(self, v):
+        setattr(self, slot, (self._t.gen, v))
+
+    return property(get, set_)
+
+
+class LoadedRead:
+    """One read of the native loader: the fields and meanings of
+    :class:`~oatk_tpu_torch.kernels.oracle.ReadSyncmers`, holding only its
+    sid, name and hoco length and its run's :class:`ReadTable`.  Each
+    array field is a view into the table's whole-run arrays, made on first
+    access; a value assigned to a field is kept and read from then on (a
+    syncmer field's until the table's next set)."""
+
+    __slots__ = ("sid", "name", "hoco_l", "_t") + tuple("_" + f for f in READ_FIELDS)
+
+    def __init__(self, sid: int, name: str, hoco_l: int, table: ReadTable):
+        self.sid = sid
+        self.name = name
+        self.hoco_l = hoco_l
+        self._t = table
+
+    hoco_code = _hoco_field("hoco_code", _hoco_window("hoco_flat"))
+    ho_rl = _hoco_field("ho_rl", _hoco_window("rl_flat"))
+    is_n = _hoco_field("is_n", _is_n_window)
+    m_pos = _syncmer_field("m_pos")
+    s_mer = _syncmer_field("s_mer")
+    k_mer = _syncmer_field("k_mer")
+
+    @property
+    def n(self) -> int:
+        return len(self.m_pos)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -679,7 +808,8 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
         uploads = Uploads(device) if devcount is not None else None
     counters = dict(files=0, nsel_reads=0, chunk_reads=0, regrows=0, pinned_bytes=0,
                     copy_uploads=0, units=0, appends=0, device_rows=0, host_rows=0)
-    db = ReadDB(k=w, s=s)
+    table = ReadTable()
+    db = ReadDB(k=w, s=s, table=table)
     total_raw = 0
     up = 0
     sid0 = 0
@@ -688,6 +818,7 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
     off_parts: list[np.ndarray] = []
     ovf_pos_parts: list[np.ndarray] = []
     ovf_len_parts: list[np.ndarray] = []
+    isn_parts: list[np.ndarray] = []
     off_base = 0
 
     def extract_rows(chunks):
@@ -749,26 +880,19 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
         counters["device_rows"] += R
         up += sum(a.nbytes for f in fields for a in (f if isinstance(f, list) else [f]))
 
-    def assemble(res, sid_base, codes, rl, keep, rows):
-        """ReadSyncmers for the first ``keep`` reads of one parse unit.
-        Under device counting the m_pos/s_mer/k_mer views arrive with
-        the devcount finalize (DevCountState.build)."""
-        names, _rawlen, offs, _c, _r, isn_pos = res[:6]
-        isn_views = _read_isn_views(isn_pos, offs, keep)
-        reads = []
-        for ri in range(keep):
-            o0, o1 = int(offs[ri]), int(offs[ri + 1])
-            reads.append(ReadSyncmers(
-                sid=sid_base + ri,
-                name=names[ri],
-                hoco_l=o1 - o0,
-                hoco_code=codes[o0:o1],
-                ho_rl=rl[o0:o1],
-                is_n=isn_views[ri],
-                m_pos=None,
-                s_mer=None,
-                k_mer=None,
-            ))
+    def assemble(res, sid_base, keep, rows, base):
+        """LoadedRead records for the first ``keep`` reads of one parse
+        result, whose hoco windows start at ``base`` of the whole-run
+        flats; the result's N positions go to the table in the same
+        coordinates.  The packed route assigns each chunk's syncmer
+        arrays here; under device counting they resolve once the count
+        sets them (DevCountState.build)."""
+        names, offs, isn_pos = res[0], res[2], res[5]
+        hl = np.diff(offs[: keep + 1]).tolist()
+        reads = [LoadedRead(sid, nm, n, table)
+                 for sid, nm, n in zip(range(sid_base, sid_base + keep), names, hl)]
+        if len(isn_pos):
+            isn_parts.append(isn_pos[isn_pos < offs[keep]] + base)
         for chunk, r in rows:
             _set_rows(reads, chunk, r, keep)
         return reads
@@ -804,7 +928,7 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
                 total_raw += int(rawlen[:keep].sum())
                 rows = extract_rows(_pack_chunks(res, keep, w, s, batch_bases))
             with span("assemble_total"):
-                db.reads.extend(assemble(res, sid0, codes, rl, keep, rows))
+                db.reads.extend(assemble(res, sid0, keep, rows, off_base))
                 h_end = int(offs[keep])
                 code_parts.append(codes[:h_end])
                 rl_parts.append(rl[:h_end])
@@ -930,13 +1054,9 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
             for res, vbase, rows in seg_results:
                 names, rawlen, offs = res[0], res[1], res[2]
                 keep = len(names)
-                # the segment's reads live at [vbase, vbase+h_end) of the
-                # whole-file arrays (parse wrote in place)
-                h_end = int(offs[keep])
-                db.reads.extend(assemble(
-                    res, sid0, codes_full[vbase : vbase + h_end], rl_full[vbase : vbase + h_end],
-                    keep, rows,
-                ))
+                # the segment's reads live from vbase on in the whole-file
+                # arrays (parse wrote in place)
+                db.reads.extend(assemble(res, sid0, keep, rows, off_base + vbase))
                 total_raw += int(rawlen.sum())
                 off_parts.append(offs[:keep] + (off_base + vbase))
                 if len(res[6]):
@@ -968,6 +1088,8 @@ def _load_files(paths, w, s, max_data, batch_bases, device, device_count):
             db.hoco_off = np.concatenate(
                 off_parts + [np.asarray([off_base], np.int64)]
             ).astype(np.int64, copy=False)
+            table.hoco_flat, table.rl_flat, table.hoco_off = db.hoco_flat, db.rl_flat, db.hoco_off
+            table.isn_pos = np.concatenate(isn_parts) if isn_parts else z
     if devcount is not None and devcount.n_fill > 0:
         db._devcount = devcount  # consumed by collect_syncmer_db
     db.upload_bytes = up

@@ -20,9 +20,11 @@ invalid) key lanes to device carry buffers, and ONE finalize
 
 :meth:`DevCountState.build` fetches the results and assembles the
 SyncmerDB on the host with the JAX package's own numpy code
-(``_restore_read_views`` and ``_build_db_from_gid`` are carried
-unchanged).  Arrays handed to host code carry the JAX path's numpy
-dtypes: uint64 hashes, smers, lows and pair keys, uint32 m32, int32 gid.
+(``_restore_read_views`` and ``_build_db_from_gid`` are carried, but
+that the main route hands the reads' syncmer flats whole to the
+loader's record table instead of making a view per read).  Arrays
+handed to host code carry the JAX path's numpy dtypes: uint64 hashes,
+smers, lows and pair keys, uint32 m32, int32 gid.
 
 The finalize uses exact-size boolean compaction where the JAX program
 sorted fixed-capacity buffers, so its outputs are the valid prefixes of
@@ -278,8 +280,8 @@ class DevCountState:
             self._final = finalize_sorted(*(b[: self.n_fill] for b in self._bufs))
 
     def build(self, read_db):
-        """Finalize, fetch, restore the per-read views, and build the
-        SyncmerDB on the host.  Returns None when no occurrences were
+        """Finalize, fetch, give the reads their syncmer arrays, and build
+        the SyncmerDB on the host.  Returns None when no occurrences were
         collected."""
         from .syncmer_db import build_db_from_sorted
 
@@ -316,7 +318,7 @@ class DevCountState:
             idx_s = ((sl >> np.uint64(1)) & np.uint64(0x7FFFFFFF)).astype(np.int64)
             sm_np = np.empty(n_tot, np.uint64)
             sm_np[offs[sid_s] + idx_s] = ss
-            _restore_read_views(read_db, mc, offs, m32_f, sm_np, None)
+            _restore_read_views(read_db, offs, m32_f, sm_np)
             return build_db_from_sorted(read_db, sh, sl, ss, offs)
 
         # per-occurrence smer = head smer of its cluster: guaranteed by
@@ -330,28 +332,31 @@ class DevCountState:
         return db
 
 
-# ---- carried unchanged from oatk_tpu/index/devcount.py ----
+# ---- carried from oatk_tpu/index/devcount.py ----
 
 
-def _restore_read_views(read_db, mc, offs, m32_np, sm_np, new_kmer):
-    """Point every read's m_pos/s_mer (and k_mer when given) at its
-    slice of the fetched flat arrays.  The loader appends reads in sid
-    order, so slice i belongs to read i."""
-    reads = read_db.reads
+def _check_sid_contiguous(reads) -> None:
+    """The loader appends reads in sid order, so slice i of the fetched
+    flat arrays belongs to read i: a hard check (not an assert: -O must
+    not strip it) -- if the loader ever produced out-of-order sids the
+    slices would silently attach to the wrong reads and corrupt the
+    assembly."""
     if reads and (reads[0].sid != 0 or reads[-1].sid != len(reads) - 1):
-        # hard check (not an assert: -O must not strip it) -- if the
-        # loader ever produced out-of-order sids the slices below would
-        # silently attach to the wrong reads and corrupt the assembly
         raise RuntimeError(
             f"devcount: reads not sid-contiguous (first={reads[0].sid}, "
             f"last={reads[-1].sid}, n={len(reads)})"
         )
+
+
+def _restore_read_views(read_db, offs, m32_np, sm_np):
+    """Point every read's m_pos/s_mer at its slice of the fetched flat
+    arrays (the collision route; its host build rewrites k_mer)."""
+    reads = read_db.reads
+    _check_sid_contiguous(reads)
     for i, r in enumerate(reads):
         o0, o1 = offs[i], offs[i + 1]
         r.m_pos = m32_np[o0:o1]
         r.s_mer = sm_np[o0:o1]
-        if new_kmer is not None:
-            r.k_mer = new_kmer[o0:o1]
 
 
 def _build_db_from_gid(
@@ -361,8 +366,9 @@ def _build_db_from_gid(
     order: coverage by bincount, position lists by a radix counting sort
     of the host-computed low keys by id -- stable over the ascending
     flat (sid, idx, rev) order, exactly the reference's per-cluster
-    order -- the per-read k_mer rewrite to id<<1, and the m_pos/s_mer
-    view restore (full-fetch mode: the loader never saw them)."""
+    order -- and the reads' k_mer (rewritten to id<<1), m_pos and s_mer
+    (full-fetch mode: the loader never saw them), handed whole to the
+    loader's :class:`~oatk_tpu_torch.asm.reads.ReadTable`."""
     from .. import native
     from ..asm.consensus import set_read_flats
     from .syncmer_db import FlatViews, SyncmerDB
@@ -399,7 +405,10 @@ def _build_db_from_gid(
     )
 
     new_kmer = gid_flat.astype(np.uint64) << np.uint64(1)
-    _restore_read_views(read_db, mc, offs, m32_np, sm_np, new_kmer)
+    # every read's m_pos/s_mer/k_mer: its slice of these flats, made when
+    # a stage first reads it
+    _check_sid_contiguous(read_db.reads)
+    read_db.table.set_syncmers(offs, m32_np, sm_np, new_kmer)
     read_db.version = getattr(read_db, "version", 0) + 1
     set_read_flats(
         read_db, mc, new_kmer, m32_np, sm_np, sids.astype(np.int64)

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from genome_sim import random_genome, sample_reads
+from oatk_tpu_torch.asm.reads import READ_FIELDS
 
 W, S = 51, 11
 
@@ -389,3 +390,153 @@ def test_device_hoco_route(tmp_path, reads, monkeypatch):
             x, y = getattr(a, f), getattr(b, f)
             assert x.dtype == y.dtype and np.array_equal(x, y), (a.sid, f)
     _assert_values(t, _oracle([str(fa)]))
+
+
+def _record_paths(tmp_path, reads, both_segs, case):
+    """The inputs of one case of test_loader_records_equal_jax_reads:
+    (paths, max_data, device_count)."""
+    fa = str(tmp_path / "r.fa")
+    if case == "one-segment":
+        _write_fa(fa, reads)
+        return [fa], 0, True
+    if case in ("segments-with-ns", "host-count"):
+        _write_fa(fa, reads)
+        both_segs(4096)
+        return [fa], 0, case == "segments-with-ns"
+    if case == "files-fastq-gz":
+        fq, fgz = str(tmp_path / "r.fq"), str(tmp_path / "r2.fa.gz")
+        with open(fq, "w") as f:
+            for i, r in enumerate(reads[:20]):
+                f.write(f"@q{i}\n{r}\n+\n{'I' * len(r)}\n")
+        with gzip.open(fgz, "wt") as f:
+            for i, r in enumerate(reads[:10]):  # the N-bearing reads
+                f.write(f">g{i}\n{r}\n")
+        _write_fa(fa, reads[20:], prefix="h")
+        both_segs(2048)
+        return [fq, fgz, fa], 0, True
+    assert case == "capped"
+    f2 = str(tmp_path / "b.fa")
+    _write_fa(fa, reads[:25], prefix="a")
+    _write_fa(f2, reads[25:], prefix="b")
+    n1 = sum(len(r) for r in reads[:25])
+    return [fa, f2], n1 + sum(len(r) for r in reads[25:]) // 3, False
+
+
+def _assert_records(j, t):
+    """Every field of every read of the port's loader is what the JAX
+    loader's ReadSyncmers holds: None where it holds None, else the same
+    values, dtype and shape, and a view of another array exactly where
+    the JAX read's is one."""
+    assert len(j.reads) == len(t.reads) > 0
+    for a, b in zip(j.reads, t.reads):
+        assert (a.sid, a.name, a.hoco_l) == (b.sid, b.name, b.hoco_l)
+        for f in READ_FIELDS:
+            x, y = getattr(a, f), getattr(b, f)
+            if x is None or y is None:
+                assert x is None and y is None, (a.sid, f)
+                continue
+            assert x.dtype == y.dtype and x.shape == y.shape, (a.sid, f)
+            assert np.array_equal(x, y), (a.sid, f)
+            assert (x.base is None) == (y.base is None), (a.sid, f)
+
+
+@pytest.mark.parametrize("case", ["one-segment", "segments-with-ns", "files-fastq-gz", "capped",
+                                  "host-count"])
+def test_loader_records_equal_jax_reads(tmp_path, reads, both_segs, case):
+    """The native loader's records against the JAX loader's ReadSyncmers,
+    right after the load (the key route's syncmer fields unset on both)
+    and after collect_syncmer_db: every array made once, on its first
+    access, and kept (the table's view counts); on the routes that count
+    on the host every syncmer array is assigned, so none is made."""
+    from oatk_tpu.asm.reads import load_and_extract as j_load
+    from oatk_tpu.index.syncmer_db import collect_syncmer_db as j_collect
+    from oatk_tpu_torch.asm.reads import load_and_extract
+    from oatk_tpu_torch.index.syncmer_db import collect_syncmer_db
+
+    paths, max_data, device_count = _record_paths(tmp_path, reads, both_segs, case)
+    j = j_load(paths, W, S, max_data, impl="pallas", device_count=device_count)
+    t = load_and_extract(paths, W, S, max_data, device="cpu", device_count=device_count)
+    assert t.table.views == dict.fromkeys(READ_FIELDS, 0)
+    _assert_records(j, t)
+    assert any(r.is_n.any() for r in t.reads)
+    j_collect(j)
+    collect_syncmer_db(t)
+    _assert_records(j, t)
+    made = t.n if device_count else 0
+    assert t.table.views == dict(hoco_code=t.n, ho_rl=t.n, is_n=t.n, m_pos=made, s_mer=made,
+                                 k_mer=made)
+
+
+@pytest.mark.parametrize("field", READ_FIELDS)
+def test_assigned_field_wins(tmp_path, reads, field):
+    """A value assigned to a record's field is what the field reads from
+    then on; for m_pos/s_mer/k_mer a later set of the table's syncmer
+    flats overrides it, as the count's per-read restore did, and a value
+    assigned after that set wins again.  Other reads and other fields
+    keep their views."""
+    from oatk_tpu_torch.asm.reads import load_and_extract
+    from oatk_tpu_torch.index.syncmer_db import collect_syncmer_db
+
+    fa = tmp_path / "r.fa"
+    _write_fa(str(fa), reads)
+    db = load_and_extract([str(fa)], W, S, device="cpu")
+    r, other, t = db.reads[7], db.reads[8], db.table
+    mine = np.arange(5, dtype=np.uint64)
+    setattr(r, field, mine)
+    assert getattr(r, field) is mine
+    collect_syncmer_db(db)
+    syncmer = field in ("m_pos", "s_mer", "k_mer")
+
+    def window(rd, f):
+        if f in ("m_pos", "s_mer", "k_mer"):
+            return getattr(t, f)[t.moff[rd.sid] : t.moff[rd.sid + 1]]
+        o0 = int(db.hoco_off[rd.sid])
+        flat = db.hoco_flat if f == "hoco_code" else db.rl_flat
+        return flat[o0 : o0 + rd.hoco_l] if f != "is_n" else None
+
+    if syncmer:
+        assert np.array_equal(getattr(r, field), window(r, field))
+        setattr(r, field, mine)
+        assert getattr(r, field) is mine
+        flats = {f: getattr(t, f) for f in ("m_pos", "s_mer", "k_mer")}
+        flats[field] = flats[field] + flats[field].dtype.type(2)
+        t.set_syncmers(t.moff, flats["m_pos"], flats["s_mer"], flats["k_mer"])
+        assert np.array_equal(getattr(r, field), window(r, field))
+        setattr(r, field, mine)
+    assert getattr(r, field) is mine
+    for f in READ_FIELDS:
+        if f != field and f != "is_n":
+            assert np.array_equal(getattr(r, f), window(r, f)), f
+        if f != "is_n":
+            assert np.array_equal(getattr(other, f), window(other, f)), f
+    assert r.is_n.sum() == 6 or field == "is_n"  # read 7's N run
+    assert other.n == len(window(other, "m_pos"))
+
+
+def test_syncasm_makes_no_is_n_view(tmp_path, reads):
+    """A whole CPU syncasm (EC, 3 unzip rounds) reads no read's is_n and
+    makes each other field for at most every read once; EC hands its
+    merged flats to the record table (its second set).  Every read's
+    syncmer arrays at the end, and the GFA bytes, equal the JAX
+    package's syncasm."""
+    from oatk_tpu.asm import pipeline as J
+    from oatk_tpu_torch.asm.pipeline import syncasm
+
+    fa = tmp_path / "r.fa"
+    _write_fa(str(fa), reads)
+    kw = dict(k=W, s=S, min_k_cov=2, do_ec=True, do_unzip=3)
+    oj, ot = str(tmp_path / "j"), str(tmp_path / "t")
+    res = syncasm([str(fa)], out=ot, device="cpu", **kw)
+    assert res.scg is not None
+    t = res.read_db.table
+    assert t.views["is_n"] == 0 and t.gen == 2
+    assert all(v <= res.read_db.n for v in t.views.values()), t.views
+    ref = J.syncasm([str(fa)], out=oj, **kw)
+    assert ref.read_db.n == res.read_db.n
+    for a, b in zip(ref.read_db.reads, res.read_db.reads):
+        for f in ("m_pos", "s_mer", "k_mer"):
+            x, y = getattr(a, f), getattr(b, f)
+            assert x.dtype == y.dtype and np.array_equal(x, y), (a.sid, f)
+    for suf in (".utg.gfa", ".utg.final.gfa"):
+        with open(oj + suf, "rb") as f1, open(ot + suf, "rb") as f2:
+            assert f1.read() == f2.read(), suf

@@ -19,6 +19,9 @@ s=11, segments and units shrunk so that units of several segments run).
   queued, the split is discarded (lanes invalidated, the pending n_sel
   tensors never touched) and the Python reader takes over; the ReadDB
   equals the JAX package's ``load_reads``.
+- (b') a FASTA file whose sequence line starts with '@': the guard
+  discards the optimistic split and the verified split parses natively;
+  one record per read remains.
 - (c) on the key route the only use of an append's n_sel tensor is the
   one ``torch.cat`` per file, whose result is read once: one host read
   per file and none per unit (``load_counters``), the finalize's sorts
@@ -243,6 +246,31 @@ def test_mixed_format_discards_pending_chunks(tmp_path, reads, segs, monkeypatch
         assert a.sid == b.sid and a.name == b.name and a.hoco_l == b.hoco_l
         for f in ("hoco_code", "ho_rl", "is_n", "m_pos", "s_mer", "k_mer"):
             assert np.array_equal(getattr(a, f), getattr(b, f)), (a.sid, f)
+
+
+def test_mixed_format_retry_keeps_one_record_per_read(tmp_path, reads, segs, monkeypatch):
+    """(b') A FASTA file with a sequence line that starts with '@': the
+    guard drops the optimistic split (its lanes invalidated) and the
+    verified split parses natively.  The reads' records are made after
+    the segment loop, so exactly one per read remains, and the N
+    positions of the dropped attempt do not reach the record table:
+    every field equals the JAX loader's."""
+    from oatk_tpu_torch import native
+
+    fa = tmp_path / "at.fa"
+    with open(fa, "w") as f:
+        for i, r in enumerate(reads):
+            f.write(f">r{i}\n{r[:500]}\n@{r[500:]}\n" if i == 40 else f">r{i}\n{r}\n")
+    segs(16 << 10)
+    hits = []
+    real = native.find_pattern2
+    monkeypatch.setattr(native, "find_pattern2", lambda *a: hits.append(real(*a)) or hits[-1])
+    t = _torch_db([str(fa)])
+    assert hits and hits[0] >= 0  # the guard fired
+    assert [r.sid for r in t[0].reads] == list(range(len(reads)))
+    assert len(t[0].table.isn_pos) == 5  # read 2's NNNN and read 40's '@'
+    assert [int(r.is_n.sum()) for r in t[0].reads[:3]] == [0, 0, 4] and t[0].reads[40].is_n.sum() == 1
+    _assert_same(_jax_db([str(fa)]), t)
 
 
 @pytest.mark.parametrize("n_files", [1, 2])

@@ -11,7 +11,8 @@ the first job (its ``once`` keys against a steady job), ``--jobs``
 steady jobs, then ``--traced`` jobs under ``OATK_TPU_PROFILE``.  For
 every job it gives the call's wall (``syncasm``), the part of it that
 no top-level stage covers, the process's CPU seconds and the loader's
-split and counters; over the jobs the median of every key, untraced and traced (the
+split and counters and the views its reads' record table made, by
+field; over the jobs the median of every key, untraced and traced (the
 profiler's cost by stage); and over each traced job the device's busy
 time and its idle gaps by the program's top-level span they fell in
 (``portbench/core/trace.reduce`` over the profile's Chrome trace).
@@ -116,6 +117,7 @@ def main(argv=None) -> int:
     kw = dict(cfg["syncasm"], threads=threads)
 
     counters = []  # the loader's load_counters of every job
+    views = []  # the views the reads' record table made in every job, by field, and its reads
 
     def job():
         t0 = time.perf_counter()
@@ -123,6 +125,8 @@ def main(argv=None) -> int:
         if card:
             torch.cuda.synchronize()
         counters.append(dict(getattr(res.read_db, "load_counters", None) or {}))
+        table = getattr(res.read_db, "table", None)
+        views.append(dict(table.views, reads=res.read_db.n) if table is not None else {})
         return time.perf_counter() - t0, res.timings
 
     first = job()
@@ -149,6 +153,7 @@ def main(argv=None) -> int:
         "median_ms": med, "traced_median_ms": med_t,
         "first_timings_ms": {k: 1000.0 * v for k, v in first[1].items()},
         "load_counters": counters,
+        "read_views": views,
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, "w") as f:
@@ -163,6 +168,7 @@ def main(argv=None) -> int:
                   f"once {sorted(j['once'])}" + (
                       f" busy {j['busy_s']:.3f} of {j['window_s']:.3f} s" if "busy_s" in j else ""))
     print(f"[trace_report] load_counters, last steady job: {counters[args.jobs]}")
+    print(f"[trace_report] read_views, last steady job: {views[args.jobs]}")
     for k in sorted(med, key=lambda k: -med[k]):
         if k.count(".") > 1 or (k.count(".") == 1 and not k.startswith("load")):
             continue
